@@ -1,0 +1,51 @@
+"""Weight bridge: the JAX package's flax ResNet variables → a state dict of
+the port's :class:`~.resnet.ResNet`.
+
+The two models share module names (``conv1``, ``bn1``, ``layer{i}_{j}/conv{k}``,
+``bn{k}``, ``downsample_conv``, ``downsample_bn``, ``fc``;
+deephisto_tpu/models/resnet.py:24-166), so the mapping is by name:
+
+* conv ``kernel`` (HWIO) → ``weight`` (OIHW); Dense ``kernel`` (in, out) →
+  Linear ``weight`` (out, in); ``bias`` → ``bias``;
+* BN ``scale``/``bias`` (params) → ``weight``/``bias``; ``mean``/``var``
+  (batch_stats) → ``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_PARAM = {"scale": "weight", "bias": "bias"}
+_STAT = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def flax_resnet_to_torch(variables_np) -> dict[str, torch.Tensor]:
+    """``variables_np``: the flax ``{"params": ..., "batch_stats": ...}``
+    tree with numpy leaves. Returns float32 tensors keyed as the port's
+    state dict, ready for ``load_state_dict`` (which casts to each
+    parameter's dtype)."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(variables_np["params"]):
+        module, name = ".".join(path[:-1]), path[-1]
+        if name == "kernel":
+            leaf = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
+            name = "weight"
+        else:
+            name = _PARAM[name]
+        sd[f"{module}.{name}"] = torch.from_numpy(np.ascontiguousarray(leaf, np.float32))
+    for path, leaf in _leaves(variables_np.get("batch_stats", {})):
+        module = ".".join(path[:-1])
+        sd[f"{module}.{_STAT[path[-1]]}"] = torch.from_numpy(
+            np.ascontiguousarray(leaf, np.float32)
+        )
+        sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
+    return sd

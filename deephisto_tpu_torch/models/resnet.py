@@ -1,0 +1,198 @@
+"""ResNet family in PyTorch, a port of ``deephisto_tpu/models/resnet.py``.
+
+Module and parameter names follow the flax model (``conv1``, ``bn1``,
+``layer{i}_{j}.conv{k}``, ``downsample_conv``, ``fc``), so
+:func:`..convert.flax_resnet_to_torch` maps one onto the other by name.
+
+The public call takes NHWC input and returns NHWC feature maps, as the JAX
+model does. Inside, ``permute(0, 3, 1, 2)`` gives an NCHW view of
+channels_last memory, so the NHWC patches K1 writes reach cuDNN without a
+copy; the weights are held channels_last too.
+
+Numerics follow flax: convs pad as XLA's ``SAME`` (see :class:`SameConv2d`),
+BN eps is 1e-5 and runs in float32 on the model-dtype activations, the GAP
+mean stays in the model dtype and ``fc`` runs in float32. With
+``dtype=bfloat16`` the convs' weights are held in bf16 (flax casts its f32
+kernels at each call; the values are the same) and BN's in float32.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """XLA ``SAME`` padding of one axis: ``out = ceil(n/s)``, ``pad_total =
+    max((out-1)·s + k - n, 0)``, ``lo = pad_total // 2``. A stride-2 3×3
+    conv on an even extent pads (0, 1), not the (1, 1) of torch's
+    ``padding=1``."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """Bias-free conv with XLA ``SAME`` padding (flax ``nn.Conv``'s default),
+    computed per call from the input extent. Symmetric padding goes to the
+    conv itself; asymmetric padding is an explicit ``F.pad`` first."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+        super().__init__(cin, cout, k, stride=stride, padding=0, bias=False)
+
+    def forward(self, x):
+        k, s = self.kernel_size[0], self.stride[0]
+        (ty, by), (lx, rx) = same_pads(x.shape[2], k, s), same_pads(x.shape[3], k, s)
+        if ty == by and lx == rx:
+            return F.conv2d(x, self.weight, None, self.stride, (ty, lx))
+        return F.conv2d(F.pad(x, (lx, rx, ty, by)), self.weight, None, self.stride)
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    # flax momentum 0.9 (weight of the old running value) is torch's 0.1
+    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, strides: int = 1):
+        super().__init__()
+        self.conv1 = SameConv2d(cin, filters, 3, strides)
+        self.bn1 = _bn(filters)
+        self.conv2 = SameConv2d(filters, filters, 3)
+        self.bn2 = _bn(filters)
+        self.has_downsample = cin != filters or strides != 1
+        if self.has_downsample:
+            self.downsample_conv = SameConv2d(cin, filters, 1, strides)
+            self.downsample_bn = _bn(filters)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)), inplace=True)
+        y = self.bn2(self.conv2(y))
+        r = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        return F.relu(r + y, inplace=True)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, strides: int = 1):
+        super().__init__()
+        self.conv1 = SameConv2d(cin, filters, 1)
+        self.bn1 = _bn(filters)
+        self.conv2 = SameConv2d(filters, filters, 3, strides)
+        self.bn2 = _bn(filters)
+        self.conv3 = SameConv2d(filters, filters * 4, 1)
+        self.bn3 = _bn(filters * 4)
+        self.has_downsample = cin != filters * 4 or strides != 1
+        if self.has_downsample:
+            self.downsample_conv = SameConv2d(cin, filters * 4, 1, strides)
+            self.downsample_bn = _bn(filters * 4)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)), inplace=True)
+        y = F.relu(self.bn2(self.conv2(y)), inplace=True)
+        y = self.bn3(self.conv3(y))
+        r = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        return F.relu(r + y, inplace=True)
+
+
+class ResNet(nn.Module):
+    """conv1 stem → 4 stages of blocks → GAP → fc, as the flax ``ResNet``.
+
+    stem: "imagenet" (7×7/2 conv padded (3, 3), then 3×3/2 max-pool padded
+    (1, 1)) or "s2d" (4×4 space-to-depth of the input, then a 2×2 SAME
+    conv; the input extent must be a multiple of 4). Input is RGB."""
+
+    def __init__(
+        self,
+        stage_sizes: Sequence[int],
+        block_cls: type,
+        num_classes: int,
+        num_filters: int = 64,
+        dtype: torch.dtype = torch.bfloat16,
+        stem: str = "imagenet",
+    ):
+        super().__init__()
+        if stem not in ("imagenet", "s2d"):
+            raise ValueError(f"stem must be 'imagenet' or 's2d', got {stem!r}")
+        self.stage_sizes = tuple(stage_sizes)
+        self.num_filters = num_filters
+        self.dtype = dtype
+        self.stem = stem
+        if stem == "s2d":
+            self.conv1 = SameConv2d(16 * 3, num_filters, 2)
+        else:
+            self.conv1 = nn.Conv2d(3, num_filters, 7, 2, padding=3, bias=False)
+        self.bn1 = _bn(num_filters)
+        self.stages: list[list[str]] = []
+        cin = num_filters
+        for i, count in enumerate(self.stage_sizes):
+            self.stages.append([])
+            for j in range(count):
+                filters = num_filters * 2**i
+                name = f"layer{i + 1}_{j}"
+                self.add_module(name, block_cls(cin, filters, 2 if i > 0 and j == 0 else 1))
+                self.stages[i].append(name)
+                cin = filters * block_cls.expansion
+        self.fc = nn.Linear(cin, num_classes)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def forward(self, x, features: bool = False, up_to: str | None = None):
+        """x: (B, H, W, C). Returns (B, num_classes) float32 logits, or with
+        ``features=True`` the pre-GAP feature map (B, H/32, W/32, C'), or with
+        ``up_to`` in {"stem", "layer1".."layer4"} the NHWC tensor after that
+        boundary."""
+        x = x.to(self.dtype)
+        if self.stem == "s2d":
+            b, h, w, c = x.shape
+            x = x.reshape(b, h // 4, 4, w // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(b, h // 4, w // 4, 16 * c)
+        x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC (channels_last) memory
+        x = F.relu(self.bn1(self.conv1(x)), inplace=True)
+        if self.stem == "imagenet":
+            x = F.max_pool2d(x, 3, 2, padding=1)
+        if up_to == "stem":
+            return x.permute(0, 2, 3, 1)
+        for i, names in enumerate(self.stages):
+            for name in names:
+                x = getattr(self, name)(x)
+            if up_to == f"layer{i + 1}":
+                return x.permute(0, 2, 3, 1)
+        if features:
+            return x.permute(0, 2, 3, 1)
+        x = x.mean(dim=(2, 3))
+        return self.fc(x.float())
+
+
+ResNet18 = partial(ResNet, stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock)
+ResNet34 = partial(ResNet, stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock)
+ResNet50 = partial(ResNet, stage_sizes=(3, 4, 6, 3), block_cls=Bottleneck)
+ResNet101 = partial(ResNet, stage_sizes=(3, 4, 23, 3), block_cls=Bottleneck)
+
+_DEPTHS = {18: ResNet18, 34: ResNet34, 50: ResNet50, 101: ResNet101}
+
+
+def build_resnet(
+    num_classes: int,
+    depth: int = 18,
+    dtype: torch.dtype = torch.bfloat16,
+    stem: str = "imagenet",
+    width: int = 1,
+) -> ResNet:
+    """ResNet by depth (18/34/50/101); ``width`` multiplies every stage's
+    channel count."""
+    try:
+        ctor = _DEPTHS[depth]
+    except KeyError:
+        raise ValueError(
+            f"unsupported ResNet depth {depth}; choose from {sorted(_DEPTHS)}"
+        ) from None
+    return ctor(num_classes=num_classes, dtype=dtype, stem=stem, num_filters=64 * width)
