@@ -17,7 +17,23 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
    4096² crop: argmax agreement and the largest score difference.
 
 6. profile: one main-path predict under ``torch.profiler``: device time by
-   kernel group, the largest kernels, and the card's busy share.
+   kernel group, the largest kernels, and the card's busy share;
+7. ViT main path: ``predict_full_fused`` on a seeded 8192² crop of the slide
+   (5,329 patches, 21 batches of 256) with a seeded full-width ``vit2p8``
+   ViT (``get_model(5, arch="vit", depth=6, stem="conv", patch=8)``: dim
+   384, 6 heads, 784 tokens a patch; random BN statistics, centred head),
+   bf16: one warm-up, then the best of 3; patches/s, peak memory, and K3
+   launched exactly depth × batches = 126 times a predict;
+8. the ViT path vs the same model with the plain attention on a 2048² crop:
+   argmax agreement and the largest score difference;
+9. profile of one ViT predict, by kernel group.
+
+Phase 3 also holds K3 (flash attention) against its plain version in bf16
+and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
+and Dh 16 and 32, times it beside its FLOP bound, its plain version and
+``F.scaled_dot_product_attention`` (a yardstick only: the port never calls
+it), and times K3, the plain jnp-branch attention and SDPA at 196 and 784
+tokens.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
 last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -35,9 +51,21 @@ import torch
 
 SEED = 0
 MAIN_SIDE, CHECK_SIDE = 16384, 4096
+VIT_SIDE, VIT_CHECK_SIDE, VIT_DEPTH, VIT_PATCH = 8192, 2048, 6, 8
 PS, STRIDE, D, BS, N_CLASSES = 224, 112, 16, 256, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12  # dense tensor-core peak, H100 SXM data sheet
 K2_TOL = 1e-5  # both sides add in patch order; f32 sums of the same terms
+# K3 vs its plain version: bf16 within 1 % of the largest |output| (P and the
+# output round to bf16 against other running maxima than the plain version's);
+# f32 within 1e-4 absolute (ex2.approx and another summation order)
+K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# the ViT path vs the same model with the plain attention (phase 8): that
+# path rounds Q·Kᵀ and its scaling to bf16 where K3 keeps f32, so logits move
+# at bf16 scale through 6 blocks; a class flips only on a near tie
+VIT_AGREE, VIT_DIFF = 0.99, 2e-2
+K3_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (256, 6, 196, 64),
+             (16, 6, 300, 16), (16, 6, 300, 32)]
 MAIN_TIMED_RUNS = 3
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
 
@@ -70,11 +98,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def seeded_model(device):
+def seeded_model(device, **kwargs):
+    """``get_model(N_CLASSES, **kwargs)`` in bf16 with seeded weights and
+    random BN statistics, so that no conv path is constant."""
     from deephisto_tpu_torch.models.patch_cls_simple import get_model, init_model
 
-    model = init_model(get_model(N_CLASSES, depth=18, dtype=torch.bfloat16), seed=SEED)
-    # random BN statistics, so that no block's conv path is constant
+    model = init_model(get_model(N_CLASSES, dtype=torch.bfloat16, **kwargs), seed=SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -88,15 +117,20 @@ def seeded_model(device):
 
 
 @torch.no_grad()
-def center_head(model, slide, coords) -> None:
-    """Shift the fc bias so that the logits are centred over patches spread
-    across the slide: a random trunk's pooled features share a large common
-    part, and without this one class would win every patch."""
+def center_head(model, head, slide, coords) -> None:
+    """Shift the bias of the ``head`` Linear so that the logits are centred
+    over patches spread across the slide: a random trunk's pooled features
+    share a large common part, and without this one class would win every
+    patch. The head's input is caught with a forward pre-hook."""
     from deephisto_tpu_torch.ops import gather_normalize
 
-    x = gather_normalize(slide, coords, PS, torch.bfloat16)
-    mu = model(x, features=True).float().mean(dim=(0, 1, 2))
-    model.fc.bias -= model.fc.weight @ mu
+    feats = []
+    hook = head.register_forward_pre_hook(lambda m, args: feats.append(args[0]))
+    try:
+        model(gather_normalize(slide, coords, PS, torch.bfloat16))
+    finally:
+        hook.remove()
+    head.bias -= head.weight @ feats[0].float().mean(0)
 
 
 def seeded_slide(device):
@@ -227,6 +261,99 @@ def check_k2(dense, device):
     }
 
 
+def check_k3(device):
+    from deephisto_tpu_torch.ops import attention_plain, flash_attention, flash_attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    err = 0.0
+    for shape in K3_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, device=device, generator=gen).to(dt) for _ in range(3))
+            got = flash_attention(q, k, v, shape[-1] ** -0.5)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, shape[-1] ** -0.5).float()
+            e = float((got.float() - want).abs().max())
+            rel = e / float(want.abs().max())
+            measure = rel if dt == torch.bfloat16 else e
+            print(f"K3 flash_attention {shape} {str(dt)[6:]}: max |diff| {e} "
+                  f"(relative {rel}; tolerance {K3_TOL[dt]} "
+                  f"{'relative' if dt == torch.bfloat16 else 'absolute'})")
+            if not measure <= K3_TOL[dt]:
+                raise AssertionError(f"K3 differs from its plain version at {shape} {dt}")
+            if dt == torch.bfloat16:
+                err = max(err, e)
+            del q, k, v, got, want
+
+    def qkv(b, n):
+        return [torch.randn((b, 6, n, 64), device=device, generator=gen).to(torch.bfloat16)
+                for _ in range(3)]
+
+    # the main shape; then K3, the plain jnp branch and SDPA at 196 and 784
+    # tokens (the JAX model's FLASH_MIN_SEQ = 512 sits between them)
+    F = torch.nn.functional
+    b, h, n, dh = K3_SHAPES[0]
+    q, k, v = qkv(b, n)
+    ms = cuda_ms(lambda i: flash_attention(q, k, v, dh ** -0.5), 20)
+    plain_ms = cuda_ms(lambda i: flash_attention_ref(q, k, v, dh ** -0.5), 3)
+    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5), 20)
+    flops = 4 * b * h * n * n * dh
+    nbytes = 4 * b * h * n * dh * 2
+    seq = {}
+    for n_tok in (196, 784):
+        q2, k2, v2 = qkv(b, n_tok)
+        seq[n_tok] = {
+            "flash_attention_ms": cuda_ms(lambda i: flash_attention(q2, k2, v2, 0.125), 20),
+            "attention_plain_ms": cuda_ms(lambda i: attention_plain(q2, k2, v2), 10),
+            "sdpa_ms": cuda_ms(
+                lambda i: F.scaled_dot_product_attention(q2, k2, v2, scale=0.125), 20),
+        }
+    print(f"K3 at ({b}, {h}, N, {dh}) bf16 by tokens N (ms): " + json.dumps(seq))
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "deephisto_tpu_torch/csrc/attention.cu",
+        "replaces": "deephisto_tpu/models/vit.py:125 (jax.experimental.pallas.ops.tpu."
+                    "flash_attention, flash_attention.py:131)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
+        else "bytes",
+        "library_ms": library_ms, "tflops": flops / ms / 1e9, "by_tokens": seq,
+    }
+
+
+def run_main_path(slide, model, side, label):
+    """One warm-up predict, then the best of ``MAIN_TIMED_RUNS``, with every
+    launch count set to 0 just before and read just after. Checks the maps
+    and returns (launches, runs, best seconds, peak GiB, argmax map)."""
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.predict import predict_full_fused
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
+    warm_s = time.perf_counter() - t0
+    best_s = float("inf")
+    for _ in range(MAIN_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
+        torch.cuda.synchronize()
+        best_s = min(best_s, time.perf_counter() - t0)
+    launches = dict(_build.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if argmax_map.shape != (side // D,) * 2 or argmax_map.dtype != np.uint8:
+        raise AssertionError(f"{label}: argmax map {argmax_map.shape} {argmax_map.dtype}")
+    if int(argmax_map.max()) >= N_CLASSES:
+        raise AssertionError(f"{label}: argmax map holds a class id >= n_classes")
+    if score_map.shape != (side // D, side // D, N_CLASSES):
+        raise AssertionError(f"{label}: score map {tuple(score_map.shape)}")
+    if not bool(torch.isfinite(score_map).all()):
+        raise AssertionError(f"{label}: score map is not finite")
+    return launches, 1 + MAIN_TIMED_RUNS, warm_s, best_s, peak_gib, argmax_map
+
+
 def plain_predict(image, model):
     """The exact dense predict through the plain gather and stitch."""
     from deephisto_tpu_torch.ops import gather_patches, scatter_add_map_ref
@@ -249,11 +376,13 @@ def plain_predict(image, model):
 
 KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
     ("gather_normalize", "K1 gather_normalize"), ("scatter_add_map", "K2 scatter_add_map"),
+    ("flash_fwd", "K3 flash_attention"), ("layer_norm", "LayerNorm"), ("gelu", "GELU"),
     ("batch_norm", "batch norm"), ("addpadding", "cuDNN input padding"),
-    ("fprop", "convolution"), ("conv", "convolution"), ("xmma", "convolution"),
-    ("gemm", "convolution"), ("max_pool", "max pool"), ("clamp", "relu"),
-    ("functor_add", "residual add"), ("reduce", "mean / argmax"),
-    ("fill", "fill / memset"), ("memset", "fill / memset"),
+    ("fprop", "convolution"), ("conv", "convolution"), ("max_pool", "max pool"),
+    ("gemm", "GEMM (Dense)"), ("nvjet", "GEMM (Dense)"), ("cutlass", "GEMM (Dense)"),
+    ("xmma", "GEMM (Dense)"), ("clamp", "relu"), ("copy", "dtype casts / copies"),
+    ("add", "residual / bias add"), ("reduce", "mean / argmax"), ("fill", "fill / memset"),
+    ("memset", "fill / memset"),
 )
 
 
@@ -306,6 +435,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
     device = torch.device("cuda", 0)
+    # the f32 plain versions run in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
     secs = _build.build()
@@ -315,41 +447,23 @@ def main() -> int:
     # 3. kernels vs plain at the main path's shapes
     slide = seeded_slide(device)
     dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
-    kernels = [check_k1(slide, dense), check_k2(dense, device)]
+    kernels = [check_k1(slide, dense), check_k2(dense, device), check_k3(device)]
+    for k in kernels:
+        k["launches"] = 0
+        k["launches_by_path"] = {}
 
     # 4. main path
-    model = seeded_model(device)
+    model = seeded_model(device, depth=18)
     n_patches = len(dense)
-    center_head(model, slide, dense[:: n_patches // 64][:64])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
-    warm_s = time.perf_counter() - t0
-    best_s = float("inf")
-    for _ in range(MAIN_TIMED_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
-        torch.cuda.synchronize()
-        best_s = min(best_s, time.perf_counter() - t0)
-    launches = dict(_build.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    runs = 1 + MAIN_TIMED_RUNS
-    for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
-        k["launches_per_predict"] = k["launches"] / runs
-        if k["launches"] == 0:
+    center_head(model, model.fc, slide, dense[:: n_patches // 64][:64])
+    launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
+        slide, model, MAIN_SIDE, "ResNet-18 path")
+    for k in kernels[:2]:
+        if launches.get(k["name"], 0) == 0:
             raise AssertionError(f"the main path never launched {k['name']}")
-    if argmax_map.shape != (MAIN_SIDE // D,) * 2 or argmax_map.dtype != np.uint8:
-        raise AssertionError(f"argmax map {argmax_map.shape} {argmax_map.dtype}")
-    if int(argmax_map.max()) >= N_CLASSES:
-        raise AssertionError("argmax map holds a class id >= n_classes")
-    if score_map.shape != (MAIN_SIDE // D, MAIN_SIDE // D, N_CLASSES):
-        raise AssertionError(f"score map {tuple(score_map.shape)}")
-    if not bool(torch.isfinite(score_map).all()):
-        raise AssertionError("score map is not finite")
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+        k["launches_by_path"]["resnet18_16384"] = launches.get(k["name"], 0) / runs
     print(f"main path: {MAIN_SIDE}x{MAIN_SIDE} slide, {n_patches} patches, ResNet-18 bf16, "
           f"batch {BS}: warm-up {warm_s:.3f} s, best of {MAIN_TIMED_RUNS} {best_s:.4f} s = "
           f"{n_patches / best_s:.1f} patches/s; peak memory {peak_gib:.2f} GiB; launches "
@@ -371,6 +485,57 @@ def main() -> int:
     # 6. where the time goes
     print(f"profile of one {MAIN_SIDE}^2 predict: "
           + json.dumps(profile_main_path(slide, model)))
+    del model
+
+    # 7. ViT-S/8 main path: K1, the ViT with K3 in every block, K2
+    from deephisto_tpu_torch.models import vit as vit_module
+
+    vit_slide = slide[:VIT_SIDE, :VIT_SIDE].contiguous()
+    vit_dense = torch.from_numpy(dense_coords(VIT_SIDE, VIT_SIDE, PS, STRIDE))
+    vit = seeded_model(device, arch="vit", depth=VIT_DEPTH, stem="conv", patch=VIT_PATCH)
+    n_vit = len(vit_dense)
+    batches = -(-n_vit // BS)
+    center_head(vit, vit.head, vit_slide, vit_dense[:: n_vit // 64][:64])
+    launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
+        vit_slide, vit, VIT_SIDE, "ViT-S/8 path")
+    for k in kernels:
+        if launches.get(k["name"], 0) == 0:
+            raise AssertionError(f"the ViT path never launched {k['name']}")
+        k["launches"] += launches.get(k["name"], 0)
+        k["launches_by_path"]["vit2p8_8192"] = launches.get(k["name"], 0) / runs
+    want_k3 = VIT_DEPTH * batches * runs
+    if launches.get("flash_attention") != want_k3:
+        raise AssertionError(f"K3 launched {launches.get('flash_attention')} times over "
+                             f"{runs} ViT predicts, not depth x batches x runs = {want_k3}")
+    print(f"ViT main path: {VIT_SIDE}x{VIT_SIDE} slide, {n_vit} patches ({batches} batches), "
+          f"vit2p8 (depth {VIT_DEPTH}, dim 384, 6 heads, patch {VIT_PATCH}, conv stem) bf16, "
+          f"batch {BS}: warm-up {warm_s:.3f} s, best of {MAIN_TIMED_RUNS} {best_s:.4f} s = "
+          f"{n_vit / best_s:.1f} patches/s; peak memory {peak_gib:.2f} GiB; launches over "
+          f"{runs} runs: {launches} (K3 {launches['flash_attention'] // runs} a predict = "
+          f"depth x batches); classes present "
+          f"{np.bincount(argmax_map.ravel(), minlength=N_CLASSES).tolist()}")
+
+    # 8. the ViT path vs the same model with the plain (jnp-branch) attention
+    crop = slide[:VIT_CHECK_SIDE, :VIT_CHECK_SIDE].contiguous()
+    got_map, got_score = predict_full_fused(crop, vit, N_CLASSES)
+    flash_min = vit_module.FLASH_MIN_SEQ
+    vit_module.FLASH_MIN_SEQ = 1 << 30
+    try:
+        want_map, want_score = predict_full_fused(crop, vit, N_CLASSES)
+    finally:
+        vit_module.FLASH_MIN_SEQ = flash_min
+    agree = float((got_map == want_map).mean())
+    scale = float(want_score.abs().max())
+    diff = float((got_score - want_score).abs().max())
+    print(f"ViT path vs the plain attention on a {VIT_CHECK_SIDE}^2 crop: argmax agreement "
+          f"{agree} (bound >= {VIT_AGREE}), max |score diff| {diff} = {diff / scale} of the "
+          f"largest |score| (bound <= {VIT_DIFF})")
+    if agree < VIT_AGREE or diff > VIT_DIFF * scale:
+        raise AssertionError("the ViT path disagrees with the plain attention")
+
+    # 9. where the ViT path's time goes
+    print(f"profile of one {VIT_SIDE}^2 ViT predict: "
+          + json.dumps(profile_main_path(vit_slide, vit)))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

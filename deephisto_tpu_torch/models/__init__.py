@@ -1,6 +1,6 @@
-"""Model zoo: the ResNet family and the flax → torch weight bridge."""
+"""Model zoo: the ResNet and ViT families and the flax → torch weight bridge."""
 
-from .convert import flax_resnet_to_torch
+from .convert import flax_resnet_to_torch, flax_vit_to_torch
 from .resnet import (
     BasicBlock,
     Bottleneck,
@@ -11,6 +11,7 @@ from .resnet import (
     ResNet101,
     build_resnet,
 )
+from .vit import ViT, ViTBase, ViTSmall
 
 __all__ = [
     "BasicBlock",
@@ -21,5 +22,9 @@ __all__ = [
     "ResNet50",
     "ResNet101",
     "build_resnet",
+    "ViT",
+    "ViTBase",
+    "ViTSmall",
     "flax_resnet_to_torch",
+    "flax_vit_to_torch",
 ]

@@ -1,14 +1,18 @@
-"""Weight bridge: the JAX package's flax ResNet variables → a state dict of
-the port's :class:`~.resnet.ResNet`.
+"""Weight bridge: the JAX package's flax ResNet and ViT variables → state
+dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`.
 
-The two models share module names (``conv1``, ``bn1``, ``layer{i}_{j}/conv{k}``,
-``bn{k}``, ``downsample_conv``, ``downsample_bn``, ``fc``;
-deephisto_tpu/models/resnet.py:24-166), so the mapping is by name:
+Each pair of models shares module names (ResNet: ``conv1``, ``bn1``,
+``layer{i}_{j}/conv{k}``, ``bn{k}``, ``downsample_conv``, ``downsample_bn``,
+``fc``, deephisto_tpu/models/resnet.py:24-166; ViT: ``embed``,
+``stem_conv{i}``, ``stem_bn{i}``, ``stem_gn{i}``, ``block{i}/attn/qkv``, ...,
+deephisto_tpu/models/vit.py:92-250), so the mapping is by name:
 
 * conv ``kernel`` (HWIO) → ``weight`` (OIHW); Dense ``kernel`` (in, out) →
   Linear ``weight`` (out, in); ``bias`` → ``bias``;
-* BN ``scale``/``bias`` (params) → ``weight``/``bias``; ``mean``/``var``
-  (batch_stats) → ``running_mean``/``running_var``.
+* BN, LayerNorm and GroupNorm ``scale``/``bias`` (params) →
+  ``weight``/``bias``; BN ``mean``/``var`` (batch_stats) →
+  ``running_mean``/``running_var``;
+* the ViT's ``pos_embed`` is copied as it is.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ def flax_resnet_to_torch(variables_np) -> dict[str, torch.Tensor]:
     parameter's dtype)."""
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(variables_np["params"]):
+        if path == ("pos_embed",):  # the ViT's one top-level parameter
+            sd["pos_embed"] = torch.from_numpy(np.ascontiguousarray(leaf, np.float32))
+            continue
         module, name = ".".join(path[:-1]), path[-1]
         if name == "kernel":
             leaf = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
@@ -49,3 +56,11 @@ def flax_resnet_to_torch(variables_np) -> dict[str, torch.Tensor]:
         )
         sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def flax_vit_to_torch(variables_np) -> dict[str, torch.Tensor]:
+    """``variables_np``: the flax ViT's ``{"params": ...}`` tree (with
+    ``"batch_stats"`` for the ``conv`` stem) with numpy leaves. Returns
+    float32 tensors keyed as the port's ViT state dict. The names and rules
+    are the ResNet's, plus ``pos_embed``."""
+    return flax_resnet_to_torch(variables_np)

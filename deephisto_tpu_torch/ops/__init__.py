@@ -1,5 +1,7 @@
-"""Device ops: patch gather (kernel K1) and stitch (kernel K2)."""
+"""Device ops: patch gather (kernel K1), stitch (kernel K2) and attention
+(kernel K3)."""
 
+from .attention import attention_plain, flash_attention, flash_attention_ref
 from .gather import (
     gather_normalize,
     gather_normalize_ref,
@@ -16,7 +18,10 @@ from .stitch import (
 )
 
 __all__ = [
+    "attention_plain",
     "coverage_footprint",
+    "flash_attention",
+    "flash_attention_ref",
     "gather_normalize",
     "gather_normalize_ref",
     "gather_patches",

@@ -60,7 +60,9 @@ def predict_full_fused(
     """Dense full-WSI prediction; returns (argmax_map, score_map).
 
     image: (H, W, 3) uint8, numpy or a tensor (kept where it is if already on
-    ``device``). model: a float model on ``device``; it is put in eval mode.
+    ``device``). model: a float model (ResNet or ViT) on ``device``; it is
+    put in eval mode. A model that declares ``wants_uint8`` is refused: K1
+    writes bf16 u8/255 only.
     device: None runs on the current CUDA device and raises without one;
     ``"cpu"`` runs the plain versions of the kernels.
 
@@ -72,6 +74,11 @@ def predict_full_fused(
     """
     if n_classes > 255:
         raise ValueError("class maps are uint8: n_classes must be <= 255")
+    if getattr(model, "wants_uint8", False):
+        raise ValueError(
+            "the model wants raw uint8 patches (wants_uint8), but this predict "
+            "feeds bf16 u8/255: K1 has no uint8 output yet (ROADMAP, queue B, B1)"
+        )
     device = resolve_device(device)
     image = torch.as_tensor(image).to(device)
     if image.dtype != torch.uint8 or image.ndim != 3:

@@ -10,6 +10,8 @@ import torch
 
 from deephisto_tpu_torch import _build
 from deephisto_tpu_torch.ops import (
+    flash_attention,
+    flash_attention_ref,
     gather_normalize,
     gather_normalize_ref,
     scatter_add_map,
@@ -124,3 +126,64 @@ def test_scatter_add_map_kernel_matches_plain_on_card():
     want = torch.zeros((4, 4, 1))
     want[0, 0] = want[3, 3] = 1.0
     assert torch.equal(one.cpu(), want)
+
+
+# K3's tolerances, as chip_smoke.py holds them: bf16 outputs within 1 % of the
+# largest |output| (P and the output each round to bf16, against other maxima
+# than the plain version's); f32 within 1e-4 (ex2.approx and another
+# summation order than the f32 matmuls of the plain version).
+K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _k3_error(got, want, dtype):
+    err = float((got.float() - want.float()).abs().max())
+    return err / float(want.float().abs().max()) if dtype == torch.bfloat16 else err
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_matches_plain_on_card():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # ragged N (not a multiple of the 64-row tiles), N < 64, each head width
+    for b, h, n, dh in [(2, 3, 1000, 64), (3, 2, 200, 16), (1, 2, 37, 32), (1, 2, 130, 128)]:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, h, n, dh), device="cuda", generator=gen).to(dt)
+                       for _ in range(3))
+            _build.reset_launches()
+            got = flash_attention(q, k, v, dh**-0.5)
+            torch.cuda.synchronize()
+            assert _build.launches["flash_attention"] == 1
+            assert got.shape == q.shape and got.dtype == dt
+            err = _k3_error(got, flash_attention_ref(q, k, v, dh**-0.5), dt)
+            assert err <= K3_TOL[dt], (b, h, n, dh, dt, err)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_heads_on_card():
+    """q, k and v as the ViT hands them over: views into one (B, N, 3, H, Dh)
+    qkv projection; the output lies in (B, N, H, Dh) memory."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, n, h, dh = 2, 600, 6, 64
+    qkv = torch.randn((b, n, 3, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attention(q, k, v, 0.125)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), 0.125)
+    assert _k3_error(got, want, torch.bfloat16) <= K3_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    for shape, dt, match in [((1, 2, 64, 48), torch.bfloat16, "Dh in"),
+                             ((1, 2, 64, 64), torch.float16, "bfloat16 or")]:
+        q = torch.zeros(shape, dtype=dt, device="cuda")
+        with pytest.raises(ValueError, match=match):
+            flash_attention(q, q, q, 0.1)
+    q = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention(q, q, q, 0.1)
+    q = torch.zeros((1, 2, 64, 65), dtype=torch.bfloat16, device="cuda")[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, q, q, 0.1)  # rows 65 elements apart

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_resnet import flax_and_torch_resnet
+from test_torch_vit import flax_and_torch_vit
 
 from deephisto_tpu.predict import pipeline as jax_pipeline
 from deephisto_tpu.predict.pipeline import dense_coords as jax_dense_coords
@@ -70,6 +71,35 @@ def test_predict_full_fused_matches_jax(synthetic_slide, strict_jax_predict, ps,
     decided = (top2[..., 1] - top2[..., 0]) > 1e-3
     assert (~decided).sum() <= 0.02 * decided.size, (~decided).sum()
     np.testing.assert_array_equal(got_map[decided], np.asarray(want_map)[decided])
+
+
+def test_predict_full_fused_with_a_patch8_vit_matches_jax(synthetic_slide, strict_jax_predict):
+    """The same crop through a narrow float32 patch-8 ViT with the conv stem
+    (784 tokens a patch; random BN, LN and pos_embed): both run their plain
+    attention here (no TPU, no card), the bounds of the ResNet case."""
+    slide, _ = synthetic_slide
+    img = slide.get_region_from_layer(1, (0, 0), (448, 560))
+    jm, v, tm = flax_and_torch_vit("conv")
+    want_map, want_scores = strict_jax_predict(
+        jnp.asarray(img), jm, v, n_classes=5, batch_size=7,
+    )
+    got_map, got_scores = predict_full_fused(img, tm, n_classes=5, batch_size=7, device="cpu")
+    want_scores = np.asarray(want_scores)
+    assert got_scores.shape == want_scores.shape == (28, 35, 5)
+    np.testing.assert_allclose(got_scores.numpy(), want_scores, **TOL)
+    top2 = np.sort(want_scores, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 1e-3
+    assert (~decided).sum() <= 0.02 * decided.size, (~decided).sum()
+    np.testing.assert_array_equal(got_map[decided], np.asarray(want_map)[decided])
+
+
+def test_predict_full_fused_refuses_uint8_models():
+    """A model that wants raw uint8 patches (as the JAX ``FoldedStemViT``)
+    must not be fed bf16 u8/255: the port's K1 writes no uint8 yet."""
+    _, _, tm = flax_and_torch_resnet(18, size=64)
+    tm.wants_uint8 = True
+    with pytest.raises(ValueError, match="wants_uint8"):
+        predict_full_fused(np.zeros((64, 64, 3), np.uint8), tm, 5, patch_size=64, device="cpu")
 
 
 @pytest.mark.parametrize("h,w,ps,stride", [(448, 560, 224, 112), (300, 301, 64, 50), (64, 64, 64, 7)])

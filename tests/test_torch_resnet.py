@@ -205,5 +205,14 @@ def test_get_model_and_seeded_init():
 
 
 def test_vit_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(5, arch="vit")
+    """``arch="vit"`` builds the port's ViT now; what of the ViT family is
+    not ported yet is its uint8 serving rewrite (the JAX ``FoldedStemViT``,
+    ``wants_uint8``), which the predict refuses."""
+    from deephisto_tpu_torch.models import ViT
+    from deephisto_tpu_torch.predict import predict_full_fused
+
+    m = get_model(5, arch="vit", depth=1, dtype=torch.float32, input_size=64)
+    assert isinstance(m, ViT)
+    m.wants_uint8 = True
+    with pytest.raises(ValueError, match="ROADMAP"):
+        predict_full_fused(np.zeros((64, 64, 3), np.uint8), m, 5, patch_size=64, device="cpu")
