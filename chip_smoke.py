@@ -26,14 +26,32 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
    launched exactly depth × batches = 126 times a predict;
 8. the ViT path vs the same model with the plain attention on a 2048² crop:
    argmax agreement and the largest score difference;
-9. profile of one ViT predict, by kernel group.
+9. profile of one ViT predict, by kernel group;
+10. training main path: the port's synthetic dataset (3 train slides of
+    3072², hard, seed 7, as benchmarks/time_to_accuracy.py), the region
+    sampler (patch 224, layer 2, 4 patches a region, one image a batch), a
+    seeded full-width ``vit2p8`` in bf16, AdamW (lr 3e-4, wd 0.05),
+    ``crop_pad`` 16, label smoothing 0.1, batch 256, through
+    ``make_fused_epoch``: one untimed epoch, then timed epochs; steps/s,
+    patches/s, peak memory, finite losses, and the launches a step (K1's
+    multi-slide mode 1, K3, K4 and K5 6 each);
+11. one vit2p8 train step vs the same step with the plain attention (loss
+    and every parameter's gradient), and 8 steps on one batch that must
+    lower its loss;
+12. ResNet-18 (s2d stem, Adam lr 1e-3) training through the same epoch:
+    finite losses, BatchNorm running statistics moved, steps/s;
+13. profile of one vit2p8 train step, by kernel group.
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
 and Dh 16 and 32, times it beside its FLOP bound, its plain version and
 ``F.scaled_dot_product_attention`` (a yardstick only: the port never calls
 it), and times K3, the plain jnp-branch attention and SDPA at 196 and 784
-tokens.
+tokens; K4 and K5 (the flash-attention backward) against their plain
+version at the training shape, a ragged one, Dh 16/32/128 and f32, two runs
+bit-identical, timed beside their bounds, the plain version and SDPA's
+backward; and K1's multi-slide uint8 mode bit-equal to its plain version at
+the training bank's shape.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
 last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -44,7 +62,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -66,6 +86,17 @@ K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 VIT_AGREE, VIT_DIFF = 0.99, 2e-2
 K3_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (256, 6, 196, 64),
              (16, 6, 300, 16), (16, 6, 300, 32)]
+# K4/K5 vs their plain version: bf16 gradients within 2 % of the largest
+# |gradient| (P and dS round to bf16 before their products against the
+# kernels' and the plain version's own roundings of S); f32 within 1e-4
+K45_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+K45_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (16, 6, 300, 16), (16, 6, 300, 32),
+              (8, 6, 300, 128)]
+# training (phases 10-13): the vit2p8 recipe of benchmarks/time_to_accuracy.py
+TRAIN_SIDE, TRAIN_LAYER, TRAIN_CROP, TRAIN_STEPS, TRAIN_EPOCHS = 3072, 2, 16, 10, 2
+# the vit2p8 step vs the same step with the plain attention (bf16 Q·Kᵀ
+# there): per parameter tensor ||g - g'|| / ||g'||, and the loss
+GRAD_REL, LOSS_DIFF = 2e-2, 1e-2
 MAIN_TIMED_RUNS = 3
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz boost clock
 
@@ -321,6 +352,127 @@ def check_k3(device):
     }
 
 
+def check_k1_multi(device):
+    """K1's multi-slide uint8 mode at the training bank's shape: 3 slides of
+    1536² (3072² at layer 2) plus the bank's slack, 256 windows of
+    224 + 2·16 px, bit-equal to the plain gather (starts clamped as
+    lax.dynamic_slice does, some out of range)."""
+    from deephisto_tpu_torch.ops import gather_multi_u8, gather_patches_multi
+    from deephisto_tpu_torch.samplers.bank import SLACK_COLS, SLACK_ROWS
+
+    side = TRAIN_SIDE // TRAIN_LAYER
+    shape = (3, side + SLACK_ROWS, side + SLACK_COLS, 3)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    bank = torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+    win = PS + 2 * TRAIN_CROP
+    rng = np.random.default_rng(SEED + 5)
+    batches = []
+    for _ in range(8):
+        idx = rng.integers(0, 3, BS).astype(np.int32)
+        coords = rng.integers(0, side - win + 1, (BS, 2)).astype(np.int32)
+        batches.append((torch.from_numpy(idx).to(device), torch.from_numpy(coords).to(device)))
+    idx, coords = (t.clone() for t in batches[0])
+    idx[:2] = torch.tensor([-1, 5])
+    coords[:3] = torch.tensor([[-7, 3], [shape[1], shape[2]], [side - win, side - win]])
+    got = gather_multi_u8(bank, idx, coords, win)
+    torch.cuda.synchronize()
+    if not torch.equal(got, gather_patches_multi(bank, idx, coords, win)):
+        raise AssertionError("K1's multi-slide mode differs from its plain version")
+    print(f"K1 gather_multi_u8: bit-equal to the plain gather at N={BS}, window {win}, "
+          f"bank {shape}")
+    ms = cuda_ms(lambda i: gather_multi_u8(bank, *batches[i % 8], win), 40)
+    plain_ms = cuda_ms(lambda i: gather_patches_multi(bank, *batches[i % 8], win), 10)
+    nbytes = 2 * BS * win * win * 3 + BS * 12
+    return {
+        "name": "gather_multi_u8", "route": "cuda",
+        "source": "deephisto_tpu_torch/csrc/gather.cu",
+        "replaces": "deephisto_tpu/experimental/pallas_gather.py:152 (multi-slide u8 mode; "
+                    "the path's gather_patches_multi_xla, deephisto_tpu/ops/gather.py:59)",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+    }
+
+
+def check_k45(device):
+    """K4 (dK, dV) and K5 (dQ) against their plain version at the residuals
+    K3 writes; two runs bit-identical; times at the training shape."""
+    from deephisto_tpu_torch.ops import flash_attention_bwd, flash_attention_bwd_ref
+    from deephisto_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    err = {att.KERNEL_DKV: 0.0, att.KERNEL_DQ: 0.0}
+    for shape in K45_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and shape[0] == 256:
+                continue  # the SIMT f32 path at the training shape: minutes, no news
+            q, k, v, do = (torch.randn(shape, device=device, generator=gen).to(dt)
+                           for _ in range(4))
+            scale = shape[-1] ** -0.5
+            out, lse = att._forward(q, k, v, scale, with_lse=True)
+            got = flash_attention_bwd(q, k, v, out, lse, do, scale)
+            again = flash_attention_bwd(q, k, v, out, lse, do, scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K4/K5 are not deterministic at {shape} {dt}")
+            want = flash_attention_bwd_ref(q, k, v, out, lse, do, scale)
+            parts = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                e = float((g.float() - w.float()).abs().max())
+                rel = e / float(w.float().abs().max())
+                measure = rel if dt == torch.bfloat16 else e
+                parts.append(f"{name} {e:.3g} ({rel:.3g} rel)")
+                if not measure <= K45_TOL[dt]:
+                    raise AssertionError(f"{name} differs from its plain version at {shape} {dt}")
+                if dt == torch.bfloat16:
+                    kern = att.KERNEL_DQ if name == "dq" else att.KERNEL_DKV
+                    err[kern] = max(err[kern], e)
+            print(f"K4/K5 flash_attention_bwd {shape} {str(dt)[6:]}: max |diff| "
+                  f"{', '.join(parts)}; tolerance {K45_TOL[dt]} "
+                  f"{'relative' if dt == torch.bfloat16 else 'absolute'}; two runs bit-identical")
+            del q, k, v, do, out, lse, got, again, want
+
+    F = torch.nn.functional
+    b, h, n, dh = K45_SHAPES[0]
+    scale = dh ** -0.5
+    q, k, v, do = (torch.randn((b, h, n, dh), device=device, generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = att._forward(q, k, v, scale, with_lse=True)
+    do_, lse_, di = att._bwd_operands(q, k, v, out, lse, do)
+    grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=device)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    dkv_ms = cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DKV, q, k, v, do_, lse_, di, (dk, dv),
+                                               scale), 20)
+    dq_ms = cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DQ, q, k, v, do_, lse_, di, (dq,),
+                                              scale), 20)
+    bwd_ms = cuda_ms(lambda i: flash_attention_bwd(q, k, v, out, lse, do, scale), 20)
+    plain_ms = cuda_ms(lambda i: flash_attention_bwd_ref(q, k, v, out, lse, do, scale), 3)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    sdpa_bwd_ms = cuda_ms(lambda i: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
+                                                        retain_graph=True), 20)
+    prod = 2 * b * h * n * n * dh  # one N×N×Dh product
+    whole_bound = 5 * prod / BF16_FLOP_PER_S * 1e3
+    print(f"K4+K5 at ({b}, {h}, {n}, {dh}) bf16: K4 {dkv_ms:.4f} ms, K5 {dq_ms:.4f} ms, the "
+          f"backward (di, K4, K5) {bwd_ms:.4f} ms = {5 * prod / bwd_ms / 1e9:.1f} TFLOP/s of "
+          f"the 5-product bound {whole_bound:.4f} ms; plain {plain_ms:.3f} ms; SDPA backward "
+          f"{sdpa_bwd_ms:.4f} ms")
+    common = {"route": "cuda", "source": "deephisto_tpu_torch/csrc/attention_bwd.cu",
+              "plain_ms": plain_ms, "library_ms": sdpa_bwd_ms, "bound_by": "operations",
+              "backward_ms": bwd_ms, "backward_bound_ms": whole_bound}
+    # each kernel's bound: the products its function needs from its inputs
+    # (K4: S, dP, dV, dK; K5: S, dP, dQ)
+    return [
+        dict(common, name=att.KERNEL_DKV, max_abs_err=err[att.KERNEL_DKV], ms=dkv_ms,
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                      "(_flash_attention_bwd_dkv), from deephisto_tpu/models/vit.py:125,130",
+             bound_ms=4 * prod / BF16_FLOP_PER_S * 1e3, tflops=4 * prod / dkv_ms / 1e9),
+        dict(common, name=att.KERNEL_DQ, max_abs_err=err[att.KERNEL_DQ], ms=dq_ms,
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                      "(_flash_attention_bwd_dq), from deephisto_tpu/models/vit.py:125,130",
+             bound_ms=3 * prod / BF16_FLOP_PER_S * 1e3, tflops=3 * prod / dq_ms / 1e9),
+    ]
+
+
 def run_main_path(slide, model, side, label):
     """One warm-up predict, then the best of ``MAIN_TIMED_RUNS``, with every
     launch count set to 0 just before and read just after. Checks the maps
@@ -376,10 +528,13 @@ def plain_predict(image, model):
 
 KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
     ("gather_normalize", "K1 gather_normalize"), ("scatter_add_map", "K2 scatter_add_map"),
-    ("flash_fwd", "K3 flash_attention"), ("layer_norm", "LayerNorm"), ("gelu", "GELU"),
+    ("gather_multi_u8", "K1 gather_multi_u8"), ("flash_fwd", "K3 flash_attention"),
+    ("flash_bwd_dkv", "K4 flash_attention_bwd_dkv"), ("flash_bwd_dq", "K5 flash_attention_bwd_dq"),
+    ("adam", "optimizer"), ("layer_norm", "LayerNorm"), ("gelu", "GELU"),
     ("batch_norm", "batch norm"), ("addpadding", "cuDNN input padding"),
     ("fprop", "convolution"), ("conv", "convolution"), ("max_pool", "max pool"),
     ("gemm", "GEMM (Dense)"), ("nvjet", "GEMM (Dense)"), ("cutlass", "GEMM (Dense)"),
+    ("dgrad", "convolution backward"), ("wgrad", "convolution backward"),
     ("xmma", "GEMM (Dense)"), ("clamp", "relu"), ("copy", "dtype casts / copies"),
     ("add", "residual / bias add"), ("reduce", "mean / argmax"), ("fill", "fill / memset"),
     ("memset", "fill / memset"),
@@ -387,16 +542,21 @@ KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
 
 
 def profile_main_path(slide, model) -> dict:
-    """Device time of one predict by kernel group, and the card's busy share
+    """Device time of one predict by kernel group, and the card's busy share."""
+    from deephisto_tpu_torch.predict import predict_full_fused
+
+    return profile_device(lambda: predict_full_fused(slide, model, N_CLASSES))
+
+
+def profile_device(fn) -> dict:
+    """Device time of ``fn()`` by kernel group, and the card's busy share
     (union of kernel intervals over the profiled wall time)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from deephisto_tpu_torch.predict import predict_full_fused
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict_full_fused(slide, model, N_CLASSES)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, groups, names = [], {}, {}
@@ -423,6 +583,114 @@ def profile_main_path(slide, model) -> dict:
     }
 
 
+def train_pairs(root):
+    """The training slides of the port's synthetic dataset, made in ``root``
+    as benchmarks/time_to_accuracy.py makes its own (3 train + 1 test slides
+    of 3072², hard regime, seed 7). Returns (pairs, seconds)."""
+    from deephisto_tpu_torch.data import ensure_synthetic_dataset
+    from deephisto_tpu_torch.utils import get_img_ano_paths
+
+    t0 = time.perf_counter()
+    ds = ensure_synthetic_dataset(Path(root) / "synthetic_hard", n_train=3, n_test=1,
+                                  height=TRAIN_SIDE, width=TRAIN_SIDE, hard=True, seed=7)
+    return get_img_ano_paths(ds, "train"), time.perf_counter() - t0
+
+
+def run_training(label, model, sampler, lr, wd, crop_pad, smoothing):
+    """One untimed epoch of ``TRAIN_STEPS`` steps, then ``TRAIN_EPOCHS``
+    timed ones with every launch count set to 0 just before and read just
+    after. Returns (state, launches a step, seconds a step, peak GiB,
+    losses)."""
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.models.patch_cls_simple import make_fused_epoch
+    from deephisto_tpu_torch.train import create_train_state
+
+    state = create_train_state(model, lr, weight_decay=wd)
+    epoch = make_fused_epoch(model, sampler, BS, TRAIN_STEPS, crop_pad=crop_pad,
+                             label_smoothing=smoothing)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    state, first, _ = epoch(state, gen)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = [first]
+    for _ in range(TRAIN_EPOCHS):
+        state, l, c = epoch(state, gen)  # returns after its one read back
+        losses.append(l)
+    secs = (time.perf_counter() - t0) / (TRAIN_EPOCHS * TRAIN_STEPS)
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    per_step = {k: v / steps for k, v in _build.launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.cat(losses)
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{label}: a training loss is not finite: {losses.tolist()}")
+    print(f"{label} training: batch {BS}, {TRAIN_EPOCHS} timed epochs of {TRAIN_STEPS} steps "
+          f"after an untimed one ({warm_s:.2f} s): {secs * 1e3:.2f} ms a step = "
+          f"{1 / secs:.3f} steps/s = {BS / secs:.1f} patches/s; peak memory {peak:.2f} GiB; "
+          f"launches a step {per_step}; losses by step {[round(x, 4) for x in losses.tolist()]}")
+    return state, per_step, secs, peak, losses
+
+
+def vit_step_vs_plain(model, sampler, device):
+    """One train-mode loss and gradient of ``model`` on one sampled batch
+    with K3-K5, and with the plain attention (FLASH_MIN_SEQ raised), from
+    copies of the same weights; then 8 optimizer steps on that batch."""
+    import copy
+
+    from deephisto_tpu_torch.models import vit as vit_module
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.train import create_train_state, cross_entropy_loss
+
+    n = 64  # the plain attention keeps (B, H, N, N) scores for its backward
+    patches, labels, _, _ = sampler.make_sample_fn(n)(
+        torch.Generator(device).manual_seed(SEED + 7))
+    x = patches.float() / 255.0
+
+    def loss_and_grads():
+        m = copy.deepcopy(model).train()
+        loss = cross_entropy_loss(m(x), labels, 0.1)
+        names, params = zip(*m.named_parameters())
+        return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+    loss, grads = loss_and_grads()
+    flash_min = vit_module.FLASH_MIN_SEQ
+    vit_module.FLASH_MIN_SEQ = 1 << 30
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        vit_module.FLASH_MIN_SEQ = flash_min
+    rel = {}
+    for name, g in grads.items():
+        ref = grads_p[name].float()
+        denom = float(ref.norm())
+        rel[name] = float((g.float() - ref).norm()) / (denom if denom > 0 else 1.0)
+    worst = max(rel, key=rel.get)
+    dloss = abs(float(loss) - float(loss_p))
+    print(f"vit2p8 train step with K3-K5 vs the plain attention (batch {n}): loss "
+          f"{float(loss):.6f} vs {float(loss_p):.6f} (|diff| {dloss:.3g}, bound {LOSS_DIFF}); "
+          f"per-tensor ||g - g'||/||g'|| max {rel[worst]:.3g} at {worst} (bound {GRAD_REL}), "
+          f"median {float(np.median(list(rel.values()))):.3g} over {len(rel)} tensors")
+    if dloss > LOSS_DIFF or rel[worst] > GRAD_REL:
+        raise AssertionError("the vit2p8 step with K3-K5 disagrees with the plain attention")
+
+    m = copy.deepcopy(model)
+    state = create_train_state(m, 3e-4, weight_decay=0.05)
+    train_step, _ = make_steps(m)
+    losses = []
+    for _ in range(8):
+        state, l, _ = train_step(state, x, labels)
+        losses.append(l)
+    losses = torch.stack(losses).tolist()
+    print(f"vit2p8 overfit of one batch of {n}: losses over 8 steps {[round(v, 4) for v in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("8 steps on one batch did not lower its loss")
+    return {"loss_diff": dloss, "worst_grad_rel": rel[worst], "worst_tensor": worst,
+            "overfit_losses": losses}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -447,7 +715,8 @@ def main() -> int:
     # 3. kernels vs plain at the main path's shapes
     slide = seeded_slide(device)
     dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
-    kernels = [check_k1(slide, dense), check_k2(dense, device), check_k3(device)]
+    kernels = [check_k1(slide, dense), check_k1_multi(device), check_k2(dense, device),
+               check_k3(device), *check_k45(device)]
     for k in kernels:
         k["launches"] = 0
         k["launches_by_path"] = {}
@@ -458,9 +727,9 @@ def main() -> int:
     center_head(model, model.fc, slide, dense[:: n_patches // 64][:64])
     launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
         slide, model, MAIN_SIDE, "ResNet-18 path")
-    for k in kernels[:2]:
-        if launches.get(k["name"], 0) == 0:
-            raise AssertionError(f"the main path never launched {k['name']}")
+    for name in ("gather_normalize", "scatter_add_map"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"the main path never launched {name}")
     for k in kernels:
         k["launches"] += launches.get(k["name"], 0)
         k["launches_by_path"]["resnet18_16384"] = launches.get(k["name"], 0) / runs
@@ -498,9 +767,10 @@ def main() -> int:
     center_head(vit, vit.head, vit_slide, vit_dense[:: n_vit // 64][:64])
     launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
         vit_slide, vit, VIT_SIDE, "ViT-S/8 path")
+    for name in ("gather_normalize", "scatter_add_map", "flash_attention"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"the ViT path never launched {name}")
     for k in kernels:
-        if launches.get(k["name"], 0) == 0:
-            raise AssertionError(f"the ViT path never launched {k['name']}")
         k["launches"] += launches.get(k["name"], 0)
         k["launches_by_path"]["vit2p8_8192"] = launches.get(k["name"], 0) / runs
     want_k3 = VIT_DEPTH * batches * runs
@@ -536,6 +806,58 @@ def main() -> int:
     # 9. where the ViT path's time goes
     print(f"profile of one {VIT_SIDE}^2 ViT predict: "
           + json.dumps(profile_main_path(vit_slide, vit)))
+    del vit, slide, vit_slide
+
+    # 10. training main path: vit2p8 through make_fused_epoch over the sampler
+    from deephisto_tpu_torch.models.patch_cls_simple import (
+        get_model,
+        init_model,
+        make_fused_epoch,
+    )
+    from deephisto_tpu_torch.samplers import AnnoRegionRndSampler
+    from deephisto_tpu_torch.train import create_train_state
+
+    with tempfile.TemporaryDirectory() as root:
+        pairs, data_s = train_pairs(root)
+        t0 = time.perf_counter()
+        sampler = AnnoRegionRndSampler(pairs, layer=TRAIN_LAYER, patch_size=PS,
+                                       patches_from_one_region=4, one_image_for_batch=True,
+                                       verbose=False)
+        print(f"training data: {len(pairs)} synthetic {TRAIN_SIDE}^2 slides made in {data_s:.1f} s; "
+              f"sampler (region table, bank {tuple(sampler.bank.images.shape)} on the card) "
+              f"in {time.perf_counter() - t0:.1f} s")
+    vit = init_model(get_model(N_CLASSES, arch="vit", depth=VIT_DEPTH, stem="conv",
+                               patch=VIT_PATCH), seed=SEED).to(device)
+    state, per_step, step_s, peak, _ = run_training(
+        "vit2p8", vit, sampler, 3e-4, 0.05, TRAIN_CROP, 0.1)
+    want = {"gather_multi_u8": 1, "flash_attention": VIT_DEPTH,
+            "flash_attention_bwd_dkv": VIT_DEPTH, "flash_attention_bwd_dq": VIT_DEPTH}
+    got = {k: per_step.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"vit2p8 training launched {got} a step, not {want}")
+    for k in kernels:
+        k["launches"] += int(round(per_step.get(k["name"], 0) * TRAIN_EPOCHS * TRAIN_STEPS))
+        k["launches_by_path"]["vit2p8_train_step"] = per_step.get(k["name"], 0)
+
+    # 11. the vit2p8 step vs the plain attention; the one-batch overfit
+    vit_step_vs_plain(state.model, sampler, device)
+
+    # 12. ResNet-18 training through the same epoch
+    r18 = init_model(get_model(N_CLASSES, depth=18, stem="s2d"), seed=SEED).to(device)
+    stats0 = r18.bn1.running_mean.clone(), r18.bn1.running_var.clone()
+    _, r18_step, _, _, _ = run_training("ResNet-18 (s2d)", r18, sampler, 1e-3, 0.0, 0, 0.0)
+    if torch.equal(stats0[0], r18.bn1.running_mean) or torch.equal(stats0[1], r18.bn1.running_var):
+        raise AssertionError("ResNet-18 training left the BatchNorm running statistics as they were")
+    for k in kernels:
+        k["launches"] += int(round(r18_step.get(k["name"], 0) * TRAIN_EPOCHS * TRAIN_STEPS))
+        k["launches_by_path"]["resnet18_train_step"] = r18_step.get(k["name"], 0)
+    del r18
+
+    # 13. where a vit2p8 train step's time goes
+    one = make_fused_epoch(state.model, sampler, BS, 1, crop_pad=TRAIN_CROP, label_smoothing=0.1)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    print("profile of one vit2p8 train step: "
+          + json.dumps(profile_device(lambda: one(state, gen))))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

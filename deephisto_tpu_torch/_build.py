@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/deephisto_tpu_torch/``
 (at the repository root) the first time a kernel of it is launched, and
-loaded with ``ctypes``. The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and never loaded stale. Every C
+loaded with ``ctypes``. The library's file name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and never loaded stale. Every C
 entry point returns ``cudaGetLastError()``; :func:`check` raises on anything
 but 0. A failed build or launch raises: there is no fallback.
 
@@ -28,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "deephisto_tpu_torch"
-SOURCES = ("gather", "stitch", "attention")
+SOURCES = ("gather", "stitch", "attention", "attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -68,7 +69,7 @@ def library_path(name: str) -> Path:
             f"kernel source {source} is missing: the port builds its kernels from "
             "a checkout of the repository or an editable install"
         )
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

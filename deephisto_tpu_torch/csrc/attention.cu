@@ -32,89 +32,24 @@
 // The f32 path is plain SIMT FMA in full f32 (one thread per query row, K/V
 // tiles broadcast from shared memory), so float32 models run on the card too;
 // it is for correctness, not speed.
+//
+// Under autograd the wrapper passes an f32 (B, H, N) buffer for each row's
+// log-sum-exp of the scaled scores, lse = m + ln(l) of the online softmax:
+// the residual from which K4 and K5 (attention_bwd.cu) recompute P. For
+// inference it passes null and the kernel writes nothing more.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;   // query rows per block, key rows per K/V tile
-constexpr int kWarps = 4;   // bf16 path: 16 query rows per warp
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace flash;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a·b for one m16n8k16 tile, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU (ex2.approx: relative error ~2^-22; 2^-inf = +0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-struct Strides {  // element strides of one (B, H, N, Dh) operand; Dh's is 1
-  int64_t b, h, n;
-};
-
-// One 64-row tile of a (N, DH) bf16 operand into shared memory rows of LD
-// elements, by 16-byte cp.async; rows >= n are zero-filled.
-template <int DH, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0, int n) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kWarps * 32) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int gr = row0 + r;
-    const __nv_bfloat16* g = src + int64_t(min(gr, n - 1)) * row_stride + col;
-    cp_async16(dst + r * LD + col, g, gr < n ? 16 : 0);
-  }
-}
-
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int heads, int n,
-    Strides sq, Strides sk, Strides sv, Strides so, float scale_log2) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
+    float scale_log2) {
   constexpr int LD = DH + 8;  // padded row, elements
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -130,7 +65,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
   v += b * sv.b + h * sv.h;
   o += b * so.b + h * so.h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;  // mma fragment row group, column pair
+  const int c = lane % 4;  // mma fragment column pair
 
   load_tile<DH, LD>(sQ, q, sq.n, qt * kTile, n);
   load_tile<DH, LD>(sK, k, sk.n, 0, n);
@@ -155,11 +90,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-    }
+    if (j == 0) load_a_frags<DH, LD>(qf, sQ, warp, lane);
     const __nv_bfloat16* cK = sK + (j & 1) * kTile * LD;
     const __nv_bfloat16* cV = sV + (j & 1) * kTile * LD;
 
@@ -167,17 +98,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
     float s[8][4];
 #pragma unroll
     for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-      for (int t = 0; t < 8; t += 2) {
-        uint32_t bk[4];  // b0, b1 of key n-tiles t and t+1
-        ldmatrix_x4(bk, cK + (t * 8 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[t], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[t + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
+    mma_abt<DH, LD>(s, qf, cK, lane);
 
     // mask the ragged edge (the last tile only), then the online softmax in
     // log2 units: the scale (> 0) multiplies the row max and, in one FMA,
@@ -230,18 +151,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
       acc[d][3] *= alpha[1];
     }
 
-    // O += P·V
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int d = 0; d < DH / 8; d += 2) {
-        uint32_t bv[4];  // b0, b1 of dh n-tiles d and d+1, V transposed
-        ldmatrix_x4_trans(bv, cV + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + d * 8 +
-                                  (lane / 16) * 8);
-        mma_bf16(acc[d], pf[kk], bv[0], bv[1]);
-        mma_bf16(acc[d + 1], pf[kk], bv[2], bv[3]);
-      }
-    }
+    mma_pb<DH, LD>(acc, pf, cV, lane);  // O += P·V
     __syncthreads();  // the next iteration's loads overwrite this tile's buffers
   }
 
@@ -252,29 +162,23 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    // the row's log-sum-exp of the scaled scores, for the backward
+    const int row = qt * kTile + warp * 16 + lane / 4 + 8 * r;
+    if (LSE && c == 0 && row < n)
+      lse[int64_t(bh) * n + row] = (m_run[r] + log2f(l)) * CUDART_LN2_F;
   }
-  const int row0 = qt * kTile + warp * 16 + g;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* dst = o + int64_t(row) * so.n + 2 * c;
-#pragma unroll
-    for (int d = 0; d < DH / 8; ++d)
-      *reinterpret_cast<uint32_t*>(dst + d * 8) =
-          pack_bf16(acc[d][2 * r] * inv[r], acc[d][2 * r + 1] * inv[r]);
-  }
+  store_rows_bf16<DH>(o, so.n, qt * kTile + warp * 16, n, acc, lane, inv[0], inv[1]);
 }
 
 // f32: one thread per query row; Q rows in shared memory padded to DH + 1
 // floats (conflict-free per-thread reads), K/V tiles read as broadcasts.
 constexpr int kChunk = 16;  // keys per online-softmax step
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(kTile) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int heads, int n, Strides sq, Strides sk, Strides sv, Strides so,
-    float scale_log2) {
+    float* __restrict__ o, float* __restrict__ lse, int heads, int n, Strides sq, Strides sk,
+    Strides sv, Strides so, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);  // kTile x (DH + 1)
   float* sK = sQ + kTile * (DH + 1);            // kTile x DH
@@ -347,64 +251,63 @@ __global__ void __launch_bounds__(kTile) flash_fwd_f32(
     float* dst = o + int64_t(q0 + t) * so.n;
 #pragma unroll
     for (int d = 0; d < DH; ++d) dst[d] = acc[d] * inv;
+    if (LSE) lse[int64_t(bh) * n + q0 + t] = (m_run + log2f(l_run)) * CUDART_LN2_F;
   }
 }
 
-template <int DH>
+template <int DH, bool LSE>
 cudaError_t launch_bf16(int blocks, cudaStream_t stream, const void* q, const void* k,
-                        const void* v, void* o, int heads, int n, const Strides* s,
+                        const void* v, void* o, float* lse, int heads, int n, const Strides* s,
                         float scale_log2) {
   const size_t smem = size_t(5) * kTile * (DH + 8) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      flash_fwd_bf16<DH, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_bf16<DH><<<blocks, kWarps * 32, smem, stream>>>(
+  flash_fwd_bf16<DH, LSE><<<blocks, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), heads, n, s[0], s[1],
-      s[2], s[3], scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, heads, n, s[0],
+      s[1], s[2], s[3], scale_log2);
   return cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool LSE>
 cudaError_t launch_f32(int blocks, cudaStream_t stream, const void* q, const void* k,
-                       const void* v, void* o, int heads, int n, const Strides* s,
+                       const void* v, void* o, float* lse, int heads, int n, const Strides* s,
                        float scale_log2) {
   const size_t smem = size_t(kTile) * (3 * DH + 1) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      flash_fwd_f32<DH, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  flash_fwd_f32<DH><<<blocks, kTile, smem, stream>>>(
+  flash_fwd_f32<DH, LSE><<<blocks, kTile, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), heads, n, s[0], s[1], s[2], s[3], scale_log2);
+      static_cast<float*>(o), lse, heads, n, s[0], s[1], s[2], s[3], scale_log2);
   return cudaGetLastError();
 }
 
-// Makes `device` current for one call and gives the caller's device back.
-struct DeviceGuard {
-  int prev = 0;
-  bool switched = false;
-  cudaError_t err;
-  explicit DeviceGuard(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) {
-      err = cudaSetDevice(device);
-      switched = err == cudaSuccess;
-    }
-  }
-  ~DeviceGuard() {
-    if (switched) cudaSetDevice(prev);
-  }
-};
+// One (dtype, with or without lse) launch at head width DH.
+template <int DH>
+cudaError_t launch(bool bf16, int blocks, cudaStream_t st, const void* q, const void* k,
+                   const void* v, void* o, float* lse, int heads, int n, const Strides* s,
+                   float scale_log2) {
+  if (bf16)
+    return lse ? launch_bf16<DH, true>(blocks, st, q, k, v, o, lse, heads, n, s, scale_log2)
+               : launch_bf16<DH, false>(blocks, st, q, k, v, o, lse, heads, n, s, scale_log2);
+  return lse ? launch_f32<DH, true>(blocks, st, q, k, v, o, lse, heads, n, s, scale_log2)
+             : launch_f32<DH, false>(blocks, st, q, k, v, o, lse, heads, n, s, scale_log2);
+}
 
 }  // namespace
 
 // q, k, v, o: (batch, heads, n, dh) with unit stride along dh and element
 // strides `strides` = {b, h, n} for q, k, v and o in turn (12 values); bf16
-// rows 16-byte aligned (the wrapper checks). elem_bytes: 2 (bf16) or 4 (f32).
+// rows 16-byte aligned (the wrapper checks). lse: null, or a contiguous f32
+// (batch, heads, n) that receives each row's log-sum-exp of the scaled
+// scores (the residual of the backward). elem_bytes: 2 (bf16) or 4 (f32).
 // dh: 16, 32, 64 or 128. scale > 0 (the bf16 path scales the row max).
 extern "C" int dh_flash_attention(int device, const void* q, const void* k, const void* v,
-                                  void* o, int batch, int heads, int n, int dh, int elem_bytes,
-                                  const int64_t* strides, float scale, void* stream) {
+                                  void* o, void* lse, int batch, int heads, int n, int dh,
+                                  int elem_bytes, const int64_t* strides, float scale,
+                                  void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   if (batch <= 0 || heads <= 0 || n <= 0) return cudaGetLastError();
@@ -415,20 +318,14 @@ extern "C" int dh_flash_attention(int device, const void* q, const void* k, cons
   const int blocks = int(blocks64);
   const float scale_log2 = scale * kLog2e;
   auto st = static_cast<cudaStream_t>(stream);
-  if (elem_bytes == 2) {
-    switch (dh) {
-      case 16: return launch_bf16<16>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 32: return launch_bf16<32>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 64: return launch_bf16<64>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 128: return launch_bf16<128>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-    }
-  } else if (elem_bytes == 4) {
-    switch (dh) {
-      case 16: return launch_f32<16>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 32: return launch_f32<32>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 64: return launch_f32<64>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-      case 128: return launch_f32<128>(blocks, st, q, k, v, o, heads, n, s, scale_log2);
-    }
+  auto* l = static_cast<float*>(lse);
+  if (elem_bytes != 2 && elem_bytes != 4) return cudaErrorInvalidValue;
+  const bool bf16 = elem_bytes == 2;
+  switch (dh) {
+    case 16: return launch<16>(bf16, blocks, st, q, k, v, o, l, heads, n, s, scale_log2);
+    case 32: return launch<32>(bf16, blocks, st, q, k, v, o, l, heads, n, s, scale_log2);
+    case 64: return launch<64>(bf16, blocks, st, q, k, v, o, l, heads, n, s, scale_log2);
+    case 128: return launch<128>(bf16, blocks, st, q, k, v, o, l, heads, n, s, scale_log2);
   }
   return cudaErrorInvalidValue;
 }

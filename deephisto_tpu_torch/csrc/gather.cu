@@ -23,6 +23,19 @@
 // table is copied into shared memory by each block: a __constant__ table would
 // serialise every warp whose lanes read different entries, which random pixel
 // values always do.
+//
+// Multi-slide uint8 mode (dh_gather_multi_u8), the training sampler's gather:
+//   out[n, r, c, ch] = bank[s_n, y_n + r, x_n + c, ch]
+// from a (S, H, W, C) uint8 bank of padded slides, the counterpart of
+// gather_patches_multi_xla (deephisto_tpu/ops/gather.py:59), whose
+// lax.dynamic_slice start indices it clamps the same way (a negative index
+// counts from the end, then the window is clamped inside the bank), so the
+// wrapper need not read the device coords back to check them. The trainer
+// crops and flips the uint8 windows and divides afterwards, so the mode
+// writes bytes, not K1's u8/255 floats. Bound: bytes, N*ps*ps*C read and
+// written (a training batch of 256 windows of 256² RGB: 2 x 50.3 MB, 30 us at
+// 3.35 TB/s). Same grid as above; a thread packs 4 neighbouring bytes of a
+// row into one 4-byte store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +107,43 @@ void launch(const void* slide, int64_t width, int channels, const void* coords, 
   }
 }
 
+__device__ __forceinline__ int dynamic_slice_start(int i, int extent, int size) {
+  i = i < 0 ? i + extent : i;
+  return min(max(i, 0), extent - size);
+}
+
+__global__ void __launch_bounds__(kThreads) gather_multi_u8_kernel(
+    const uint8_t* __restrict__ bank, int slides, int height, int width, int channels,
+    const int32_t* __restrict__ slide_idx, const int32_t* __restrict__ coords, int ps,
+    uint8_t* __restrict__ out) {
+  const int64_t n = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int rows = min(kRows, ps - r0);
+  const int row_len = ps * channels;
+  const int64_t slide_row = int64_t(width) * channels;
+  const int s = dynamic_slice_start(slide_idx[n], slides, 1);
+  const int y = dynamic_slice_start(coords[2 * n], height, ps);
+  const int x = dynamic_slice_start(coords[2 * n + 1], width, ps);
+  const uint8_t* src = bank + (int64_t(s) * height + y + r0) * slide_row + int64_t(x) * channels;
+  uint8_t* dst = out + (n * ps + r0) * row_len;
+  if (row_len % 4 == 0) {  // every row of `out` starts 4-aligned
+    const int quads = row_len / 4;
+    for (int q = threadIdx.x; q < rows * quads; q += kThreads) {
+      const int r = q / quads;
+      const int c = (q - r * quads) * 4;
+      const uint8_t* b = src + r * slide_row + c;
+      *reinterpret_cast<uint32_t*>(dst + int64_t(r) * row_len + c) =
+          uint32_t(b[0]) | (uint32_t(b[1]) << 8) | (uint32_t(b[2]) << 16) | (uint32_t(b[3]) << 24);
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * row_len; q += kThreads) {
+      const int r = q / row_len;
+      const int c = q - r * row_len;
+      dst[int64_t(r) * row_len + c] = src[r * slide_row + c];
+    }
+  }
+}
+
 // Makes `device` current for one call and gives the caller's device back.
 struct DeviceGuard {
   int prev = 0;
@@ -130,6 +180,25 @@ extern "C" int dh_gather_normalize(int device, const void* slide, int64_t width,
     } else {
       return cudaErrorInvalidValue;
     }
+  }
+  return cudaGetLastError();
+}
+
+// bank: (slides, height, width, channels) u8, contiguous; slide_idx: (n,)
+// int32; coords: (n, 2) int32 (y, x), clamped as lax.dynamic_slice clamps
+// them; out: (n, ps, ps, channels) u8. ps <= height and ps <= width (the
+// wrapper checks).
+extern "C" int dh_gather_multi_u8(int device, const void* bank, int slides, int height, int width,
+                                  int channels, const void* slide_idx, const void* coords, int n,
+                                  int ps, void* out, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if (n > 0 && ps > 0) {
+    const dim3 grid(n, (ps + kRows - 1) / kRows);
+    gather_multi_u8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(bank), slides, height, width, channels,
+        static_cast<const int32_t*>(slide_idx), static_cast<const int32_t*>(coords), ps,
+        static_cast<uint8_t*>(out));
   }
   return cudaGetLastError();
 }

@@ -1,3 +1,4 @@
 from .model import get_model, init_model
+from .train import make_fused_epoch, make_fused_eval, make_steps
 
-__all__ = ["get_model", "init_model"]
+__all__ = ["get_model", "init_model", "make_fused_epoch", "make_fused_eval", "make_steps"]

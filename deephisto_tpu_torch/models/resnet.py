@@ -11,9 +11,11 @@ copy; the weights are held channels_last too.
 
 Numerics follow flax: convs pad as XLA's ``SAME`` (see :class:`SameConv2d`),
 BN eps is 1e-5 and runs in float32 on the model-dtype activations, the GAP
-mean stays in the model dtype and ``fc`` runs in float32. With
-``dtype=bfloat16`` the convs' weights are held in bf16 (flax casts its f32
-kernels at each call; the values are the same) and BN's in float32.
+mean stays in the model dtype and ``fc`` runs in float32. Every parameter is
+held in float32, as flax holds its params: the convs cast their kernels to
+the activations' dtype at each call, as ``nn.Conv(dtype=...)`` does, so an
+optimizer updates float32 weights. In train mode BatchNorm is flax's (see
+:class:`BatchNorm`), not torch's.
 """
 
 from __future__ import annotations
@@ -36,7 +38,33 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
+def cast_param(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """``module``'s float32 parameter ``name`` in the compute ``dtype``, as
+    flax casts its params at each call. Under ``torch.inference_mode`` the
+    cast is kept on the module and made again only when the parameter
+    changes (its storage or version counter), so a predict does not pay a
+    cast of every weight for every batch; otherwise it is cast at each call,
+    so autograd sees the cast."""
+    p = getattr(module, name)
+    if p.dtype == dtype or not torch.is_inference_mode_enabled():
+        return p.to(dtype)
+    key = (dtype, p.data_ptr(), p._version)
+    cache = module.__dict__.setdefault("_casts", {})
+    if name not in cache or cache[name][0] != key:
+        cache[name] = (key, p.to(dtype))
+    return cache[name][1]
+
+
+class CastConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with float32 parameters cast to the input's dtype at
+    each call (flax ``nn.Conv(dtype=...)`` on float32 params)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else cast_param(self, "bias", x.dtype)
+        return self._conv_forward(x, cast_param(self, "weight", x.dtype), bias)
+
+
+class SameConv2d(CastConv2d):
     """Bias-free conv with XLA ``SAME`` padding (flax ``nn.Conv``'s default),
     computed per call from the input extent. Symmetric padding goes to the
     conv itself; asymmetric padding is an explicit ``F.pad`` first."""
@@ -46,15 +74,43 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x):
         k, s = self.kernel_size[0], self.stride[0]
+        w = cast_param(self, "weight", x.dtype)
         (ty, by), (lx, rx) = same_pads(x.shape[2], k, s), same_pads(x.shape[3], k, s)
         if ty == by and lx == rx:
-            return F.conv2d(x, self.weight, None, self.stride, (ty, lx))
-        return F.conv2d(F.pad(x, (lx, rx, ty, by)), self.weight, None, self.stride)
+            return F.conv2d(x, w, None, self.stride, (ty, lx))
+        return F.conv2d(F.pad(x, (lx, rx, ty, by)), w, None, self.stride)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    # flax momentum 0.9 (weight of the old running value) is torch's 0.1
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
+    an NCHW tensor, float32 parameters and statistics on model-dtype
+    activations.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch statistics (float32, the biased variance) and updates the
+    running ones as flax does (flax/linen/normalization.py): mean and
+    ``var = max(0, E[x²] - E[x]²)`` in float32, then ``ra = 0.9·ra + 0.1·stat``
+    for both. torch's own BatchNorm feeds the running variance the unbiased
+    batch variance instead."""
+
+    MOMENTUM = 0.9  # flax's: the weight of the old running value
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-5, momentum=1.0 - self.MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.float()
+            dims = (0, 2, 3)
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -63,13 +119,13 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, filters: int, strides: int = 1):
         super().__init__()
         self.conv1 = SameConv2d(cin, filters, 3, strides)
-        self.bn1 = _bn(filters)
+        self.bn1 = BatchNorm(filters)
         self.conv2 = SameConv2d(filters, filters, 3)
-        self.bn2 = _bn(filters)
+        self.bn2 = BatchNorm(filters)
         self.has_downsample = cin != filters or strides != 1
         if self.has_downsample:
             self.downsample_conv = SameConv2d(cin, filters, 1, strides)
-            self.downsample_bn = _bn(filters)
+            self.downsample_bn = BatchNorm(filters)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)), inplace=True)
@@ -84,15 +140,15 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, filters: int, strides: int = 1):
         super().__init__()
         self.conv1 = SameConv2d(cin, filters, 1)
-        self.bn1 = _bn(filters)
+        self.bn1 = BatchNorm(filters)
         self.conv2 = SameConv2d(filters, filters, 3, strides)
-        self.bn2 = _bn(filters)
+        self.bn2 = BatchNorm(filters)
         self.conv3 = SameConv2d(filters, filters * 4, 1)
-        self.bn3 = _bn(filters * 4)
+        self.bn3 = BatchNorm(filters * 4)
         self.has_downsample = cin != filters * 4 or strides != 1
         if self.has_downsample:
             self.downsample_conv = SameConv2d(cin, filters * 4, 1, strides)
-            self.downsample_bn = _bn(filters * 4)
+            self.downsample_bn = BatchNorm(filters * 4)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)), inplace=True)
@@ -128,8 +184,8 @@ class ResNet(nn.Module):
         if stem == "s2d":
             self.conv1 = SameConv2d(16 * 3, num_filters, 2)
         else:
-            self.conv1 = nn.Conv2d(3, num_filters, 7, 2, padding=3, bias=False)
-        self.bn1 = _bn(num_filters)
+            self.conv1 = CastConv2d(3, num_filters, 7, 2, padding=3, bias=False)
+        self.bn1 = BatchNorm(num_filters)
         self.stages: list[list[str]] = []
         cin = num_filters
         for i, count in enumerate(self.stage_sizes):
@@ -143,7 +199,7 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(cin, num_classes)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                m.to(dtype=dtype, memory_format=torch.channels_last)
+                m.to(memory_format=torch.channels_last)
 
     def forward(self, x, features: bool = False, up_to: str | None = None):
         """x: (B, H, W, C). Returns (B, num_classes) float32 logits, or with

@@ -15,9 +15,13 @@ of the jnp branch (``ops.attention.attention_plain``).
 Numerics follow flax: LayerNorm and GroupNorm use eps 1e-6 and reduce in
 float32 on model-dtype activations; the stem's BatchNorm uses eps 1e-5;
 ``nn.gelu`` is the tanh approximation; convs pad as XLA's ``SAME``; Dense and
-Conv layers run in the model dtype (their weights are held in it; flax casts
-its f32 kernels at each call, the values are the same); the head is f32 on
-the model-dtype token mean. ``pos_embed`` fixes the token count to that of
+Conv layers run in the model dtype on float32 parameters cast at each call,
+as flax holds and casts its params; the head is f32 on the model-dtype token
+mean.
+
+Attention is differentiable on both routes: K3's backward is kernels K4 and
+K5 (``ops.attention.flash_attention`` is a ``torch.autograd.Function``), the
+plain branch is plain ops. ``pos_embed`` fixes the token count to that of
 ``img_size``, as flax fixes it to the init input's.
 """
 
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_plain, flash_attention
-from .resnet import SameConv2d, _bn
+from .resnet import BatchNorm, SameConv2d, cast_param
 
 # From this many tokens the JAX model takes the Pallas flash kernel on the
 # TPU (deephisto_tpu/models/vit.py:56); the port takes K3 on the card.
@@ -55,7 +59,7 @@ class _SameConvBias(SameConv2d):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return super().forward(x) + self.bias.to(x.dtype).view(1, -1, 1, 1)
+        return super().forward(x) + cast_param(self, "bias", x.dtype).view(1, -1, 1, 1)
 
 
 class _LayerNorm(nn.LayerNorm):
@@ -82,16 +86,20 @@ class _GroupNorm(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
-def _dense(cin: int, cout: int, dtype: torch.dtype) -> nn.Linear:
-    return nn.Linear(cin, cout).to(dtype)
+class _Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: float32 kernel and bias cast to the
+    input's (the model) dtype at each call."""
+
+    def forward(self, x):
+        return F.linear(x, cast_param(self, "weight", x.dtype), cast_param(self, "bias", x.dtype))
 
 
 class MHA(nn.Module):
-    def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dim: int, heads: int):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.qkv = _dense(dim, 3 * dim, dtype)
-        self.proj = _dense(dim, dim, dtype)
+        self.qkv = _Dense(dim, 3 * dim)
+        self.proj = _Dense(dim, dim)
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -103,14 +111,13 @@ class MHA(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4):
         super().__init__()
         self.ln1 = _LayerNorm(dim)
-        self.attn = MHA(dim, heads, dtype)
+        self.attn = MHA(dim, heads)
         self.ln2 = _LayerNorm(dim)
-        self.fc1 = _dense(dim, dim * mlp_ratio, dtype)
-        self.fc2 = _dense(dim * mlp_ratio, dim, dtype)
+        self.fc1 = _Dense(dim, dim * mlp_ratio)
+        self.fc2 = _Dense(dim * mlp_ratio, dim)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -159,19 +166,19 @@ class ViT(nn.Module):
                 if stem == "conv_gn":
                     self.add_module(f"stem_gn{i}", _GroupNorm(math.gcd(32, ch), ch))
                 else:
-                    self.add_module(f"stem_bn{i}", _bn(ch))
+                    self.add_module(f"stem_bn{i}", BatchNorm(ch))
                 cin = ch
                 side = -(-side // 2)
             self.embed = _SameConvBias(cin, dim, 1)
         self.n_tokens = side * side
         self.pos_embed = nn.Parameter(torch.zeros(1, self.n_tokens, dim))
         for i in range(depth):
-            self.add_module(f"block{i}", Block(dim, heads, dtype=dtype))
+            self.add_module(f"block{i}", Block(dim, heads))
         self.ln = _LayerNorm(dim)
         self.head = nn.Linear(dim, num_classes)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                m.to(dtype=dtype, memory_format=torch.channels_last)
+                m.to(memory_format=torch.channels_last)
 
     def forward(self, x, tokens: bool = False):
         """x: (B, H, W, C) images, or with ``tokens=True`` stem features
@@ -188,7 +195,7 @@ class ViT(nn.Module):
                     x = F.relu(getattr(self, f"{norm}{i}")(x))
             x = self.embed(x).permute(0, 2, 3, 1)
         b, gh, gw, d = x.shape
-        x = x.reshape(b, gh * gw, d) + self.pos_embed.to(self.dtype)
+        x = x.reshape(b, gh * gw, d) + cast_param(self, "pos_embed", self.dtype)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x)
         x = self.ln(x).mean(dim=1)

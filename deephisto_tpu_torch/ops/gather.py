@@ -4,7 +4,9 @@ Port of ``deephisto_tpu/ops/gather.py`` (the uint8 gathers, plain PyTorch
 here) and ``deephisto_tpu/experimental/pallas_gather.py`` (the fused gather +
 /255, kernel K1 in ``csrc/gather.cu``). The exact predict path runs K1 in
 place of the JAX package's gather followed by ``model_input``: they compute
-the same function.
+the same function. The training sampler runs K1's multi-slide uint8 mode
+(:func:`gather_multi_u8`, plain version :func:`gather_patches_multi`) where
+the JAX package runs ``gather_patches_multi_xla``.
 
 Layouts are the JAX package's: (H, W, C) uint8 slides, (N, 2) int32 (y, x)
 coords, (N, ps, ps, C) patches.
@@ -20,12 +22,18 @@ import torch
 from .. import _build
 
 KERNEL = "gather_normalize"
+KERNEL_MULTI = "gather_multi_u8"
 _SIGNATURE = {
     "dh_gather_normalize": [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    ],
+    "dh_gather_multi_u8": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ],
 }
 _OUT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -154,4 +162,50 @@ def gather_normalize(
     )
     _build.check(lib, err, KERNEL)
     _build.count_launch(KERNEL)
+    return out
+
+
+def gather_multi_u8(images: torch.Tensor, slide_idx, coords, patch_size: int) -> torch.Tensor:
+    """K1, multi-slide uint8 mode: (N, ps, ps, C) uint8 windows from an
+    (S, H, W, C) uint8 contiguous bank at (N,) int32 slide indices and (N, 2)
+    int32 (y, x) coords, the start indices clamped as ``lax.dynamic_slice``
+    clamps them (as :func:`gather_patches_multi`, its plain version). The
+    kernel clamps on the card, so coords on the card are never read back.
+
+    A bank on the CPU takes the plain version; a bank on a CUDA device
+    launches the kernel (built at first use), and raises if it cannot."""
+    if images.dtype != torch.uint8 or images.ndim != 4:
+        raise ValueError(
+            f"images must be (S, H, W, C) uint8, got {tuple(images.shape)} {images.dtype}"
+        )
+    if not images.is_contiguous():
+        raise ValueError("images must be contiguous")
+    s, h, w, c = images.shape
+    if patch_size < 1 or patch_size > h or patch_size > w:
+        raise ValueError(f"patch_size {patch_size} does not fit a {h}x{w} bank")
+    slide_idx = torch.as_tensor(slide_idx)
+    coords = torch.as_tensor(coords)
+    n = coords.shape[0] if coords.ndim == 2 else -1
+    if (coords.dtype != torch.int32 or coords.ndim != 2 or coords.shape[1] != 2
+            or slide_idx.dtype != torch.int32 or slide_idx.shape != (n,)):
+        raise ValueError(
+            f"slide_idx must be (N,) int32 and coords (N, 2) int32, got "
+            f"{tuple(slide_idx.shape)} {slide_idx.dtype} and {tuple(coords.shape)} {coords.dtype}"
+        )
+    if images.device.type == "cpu":
+        return gather_patches_multi(images, slide_idx, coords, patch_size)
+    if images.device.type != "cuda":
+        raise ValueError(f"gather_multi_u8 runs on cpu or cuda, not {images.device}")
+    dev = images.device
+    slide_idx = slide_idx.to(dev, non_blocking=True).contiguous()
+    coords = coords.to(dev, non_blocking=True).contiguous()
+    out = torch.empty((n, patch_size, patch_size, c), dtype=torch.uint8, device=dev)
+    lib = _build.load("gather", _SIGNATURE)
+    err = lib.dh_gather_multi_u8(
+        dev.index, images.data_ptr(), s, h, w, c, slide_idx.data_ptr(),
+        coords.data_ptr(), n, patch_size, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, KERNEL_MULTI)
+    _build.count_launch(KERNEL_MULTI)
     return out

@@ -16,8 +16,18 @@ JAX ViT's ``_attention``, on the same numpy-seeded (B, H, N, Dh) inputs.
   9.8e-4 at max 0.3-0.76).
 * On the CPU, ``flash_attention`` is its plain version, and it refuses what
   the kernel does not take.
+* The backward: ``flash_attention_bwd_ref`` (K4 and K5's plain version, at
+  the residuals of ``flash_attention_ref``) vs ``jax.vjp`` of
+  ``_attention(use_flash=True)``, the Pallas TPU backward kernels in
+  interpret mode, at 196 and 784 tokens (padded to 512 and 1024 there). In
+  float32 within 2e-5 (readings: 2e-7 to 3e-7; the interpret-mode kernels
+  match the jnp vjp to 7e-7); in bfloat16 within two bf16 steps at the
+  largest gradient, 2⁻⁷·max|g| (readings: one step, 3.9e-3 at 0.93). And
+  the autograd Function's CPU gradients against autograd through
+  ``flash_attention_ref``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +36,13 @@ from jax.experimental.pallas import tpu as pltpu
 
 from deephisto_tpu.models.vit import _attention
 from deephisto_tpu_torch.models import vit as tvit
-from deephisto_tpu_torch.ops import attention_plain, flash_attention, flash_attention_ref
+from deephisto_tpu_torch.ops import (
+    attention_plain,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 
 SHAPES = [(2, 2, 128, 64), (1, 2, 196, 64), (1, 2, 784, 64)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -113,3 +129,54 @@ def test_flash_attention_refuses_mixed_operands_and_other_devices():
         flash_attention(m, m, m, 0.1)
     with pytest.raises(ValueError, match="scale > 0"):
         flash_attention(q, q, q, 0.0)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 2, 196, 64), (1, 1, 784, 64)])
+def test_flash_bwd_ref_matches_jax_flash_kernel_vjp(shape, name):
+    arrays = _qkv(shape, seed=2) + [np.random.default_rng(3).normal(size=shape).astype(np.float32)]
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both(arrays, name)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q, k, v: _attention(q, k, v, use_flash=True), jq, jk, jv)
+        want = [_j32(g) for g in vjp(jdo)]
+    scale = shape[-1] ** -0.5
+    out, lse = flash_attention_ref(tq, tk, tv, scale, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == shape[:3]
+    got = flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == tq.dtype and g.shape == shape
+        atol = 2e-5 if name == "float32" else 2.0**-7 * np.abs(w).max()
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=atol)
+
+
+def test_flash_ref_lse_is_the_log_sum_exp():
+    q, k, v = map(torch.from_numpy, _qkv((2, 3, 70, 32), seed=4))
+    out, lse = flash_attention_ref(q, k, v, 0.3, return_lse=True)
+    want = torch.logsumexp(torch.matmul(q.double(), k.double().transpose(-1, -2)) * 0.3, dim=-1)
+    torch.testing.assert_close(lse.double(), want, atol=1e-5, rtol=0)
+    assert torch.equal(out, flash_attention_ref(q, k, v, 0.3))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_flash_attention_function_gradients_on_the_cpu(name):
+    """Through autograd on the CPU the Function runs the plain forward and
+    backward; its gradients are autograd's through ``flash_attention_ref``:
+    float32 within 2e-6 (sums in another order), bfloat16 within two bf16
+    steps at the largest gradient, 2⁻⁷·max|g| (the Function rounds P and dS
+    to bf16 before their products, as the TPU kernels do; autograd rounds
+    where the casts of the forward put it; readings: one step)."""
+    tdt = DTYPES[name][1]
+    q, k, v, w = (torch.from_numpy(a).to(tdt) for a in _qkv((2, 3, 90, 32), seed=5) + _qkv(
+        (2, 3, 90, 32), seed=6)[:1])
+    grads = []
+    for fn in (flash_attention, flash_attention_ref):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        (fn(qq, kk, vv, 0.25).float() * w.float()).sum().backward()
+        grads.append([t.grad for t in (qq, kk, vv)])
+    for g, want in zip(*grads):
+        atol = 2e-6 if name == "float32" else 2.0**-7 * float(want.float().abs().max())
+        torch.testing.assert_close(g.float(), want.float(), atol=atol, rtol=0)
+    out, lse = flash_attention_ref(q, k, v, 0.25, return_lse=True)
+    direct = flash_attention_bwd(q, k, v, out, lse, w, 0.25)
+    assert all(torch.equal(a, b) for a, b in zip(direct, flash_attention_bwd_ref(
+        q, k, v, out, lse, w, 0.25)))

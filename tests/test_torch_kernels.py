@@ -11,13 +11,17 @@ import torch
 from deephisto_tpu_torch import _build
 from deephisto_tpu_torch.ops import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
     flash_attention_ref,
+    gather_multi_u8,
     gather_normalize,
     gather_normalize_ref,
     scatter_add_map,
     scatter_add_map_exact,
     scatter_add_map_ref,
 )
+from deephisto_tpu_torch.ops.attention import _forward as flash_forward
 
 
 def _image(h, w, c=3, seed=0):
@@ -187,3 +191,85 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     q = torch.zeros((1, 2, 64, 65), dtype=torch.bfloat16, device="cuda")[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q, q, q, 0.1)  # rows 65 elements apart
+
+
+# K4/K5's tolerances, as chip_smoke.py holds them: bf16 gradients within 2 %
+# of the largest |gradient| (P and dS round to bf16 before their products,
+# against the kernels' and the plain version's own roundings of S and lse);
+# f32 within 1e-4 (ex2.approx and another summation order).
+K45_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_kernels_match_plain_on_card():
+    """K4 and K5 against their plain version at the residuals K3 writes, at
+    a ragged N, N < 64 and each head width; K3's lse against the plain
+    version's; two runs bit-identical."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, h, n, dh in [(2, 3, 1000, 64), (3, 2, 200, 16), (1, 2, 37, 32), (1, 2, 130, 128)]:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((b, h, n, dh), device="cuda", generator=gen).to(dt)
+                           for _ in range(4))
+            scale = dh**-0.5
+            out, lse = flash_forward(q, k, v, scale, with_lse=True)
+            _, lse_ref = flash_attention_ref(q, k, v, scale, return_lse=True)
+            torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+            _build.reset_launches()
+            got = flash_attention_bwd(q, k, v, out, lse, do, scale)
+            torch.cuda.synchronize()
+            assert _build.launches["flash_attention_bwd_dkv"] == 1
+            assert _build.launches["flash_attention_bwd_dq"] == 1
+            want = flash_attention_bwd_ref(q, k, v, out, lse, do, scale)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                assert g.shape == w.shape and g.dtype == dt
+                err = _k3_error(g, w, dt)
+                assert err <= K45_TOL[dt], (b, h, n, dh, dt, name, err)
+            again = flash_attention_bwd(q, k, v, out, lse, do, scale)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_reaches_the_qkv_projection_on_card():
+    """Through autograd, as the ViT calls it: q, k and v are views of one
+    qkv tensor that needs a gradient; K3, K4 and K5 each run once and every
+    slice of qkv gets its gradient."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, n, h, dh = 2, 600, 6, 64
+    qkv = torch.randn((b, n, 3, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    w = torch.randn((b, h, n, dh), device="cuda", generator=gen)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    _build.reset_launches()
+    out = flash_attention(q, k, v, 0.125)
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert {n_: _build.launches[n_] for n_ in (
+        "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")} == {
+        "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
+    out_ref, lse_ref = flash_attention_ref(qc, kc, vc, 0.125, return_lse=True)
+    want = flash_attention_bwd_ref(qc, kc, vc, out_ref, lse_ref, w.to(torch.bfloat16), 0.125)
+    for i, wg in enumerate(want):
+        got = qkv.grad[:, :, i].transpose(1, 2)
+        assert got.abs().max() > 0
+        assert _k3_error(got, wg, torch.bfloat16) <= K45_TOL[torch.bfloat16], i
+
+
+@pytest.mark.gpu
+def test_gather_multi_kernel_matches_plain_on_card():
+    """K1's multi-slide uint8 mode is the plain gather bit for bit, with
+    lax.dynamic_slice's clamping of negative and out-of-range starts."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    bank = torch.from_numpy(rng.integers(0, 256, (3, 300, 400, 3), dtype=np.uint8)).cuda()
+    for ps in (64, 57):
+        coords = rng.integers(-80, 420, size=(70, 2)).astype(np.int32)
+        coords[:4] = [(0, 0), (300 - ps, 400 - ps), (-1, -1), (299, 399)]
+        idx = rng.integers(-1, 4, size=70).astype(np.int32)
+        _build.reset_launches()
+        got = gather_multi_u8(bank, idx, coords, ps)
+        torch.cuda.synchronize()
+        assert _build.launches["gather_multi_u8"] == 1
+        assert torch.equal(got.cpu(), gather_multi_u8(bank.cpu(), idx, coords, ps))

@@ -194,9 +194,10 @@ def test_get_model_and_seeded_init():
     c = init_model(get_model(5, dtype=torch.float32), seed=4).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["conv1.weight"], c["conv1.weight"])
-    m = init_model(get_model(5), seed=0)  # default bf16 convs, f32 BN and fc
-    assert m.conv1.weight.dtype == torch.bfloat16 and m.bn1.weight.dtype == torch.float32
-    assert m.fc.weight.dtype == torch.float32
+    m = init_model(get_model(5), seed=0)  # bf16 compute on float32 params, as flax
+    assert m.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    assert m.conv1.weight.is_contiguous(memory_format=torch.channels_last)
     blocks = [b for b in m.modules() if isinstance(b, BasicBlock)]
     assert blocks and not any(b.bn2.weight.any() for b in blocks)
     with torch.no_grad():
