@@ -47,10 +47,11 @@ and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
 and Dh 16 and 32, times it beside its FLOP bound, its plain version and
 ``F.scaled_dot_product_attention`` (a yardstick only: the port never calls
 it), and times K3, the plain jnp-branch attention and SDPA at 196 and 784
-tokens; K4 and K5 (the flash-attention backward) against their plain
-version at the training shape, a ragged one, Dh 16/32/128 and f32, two runs
-bit-identical, timed beside their bounds, the plain version and SDPA's
-backward; and K1's multi-slide uint8 mode bit-equal to its plain version at
+tokens; K5 and K4 (the flash-attention backward; K5 first, it writes the
+di that K4 reads) against their plain version at the training shape, a
+ragged one, Dh 16/32/128 and f32, two runs bit-identical, timed beside their
+bounds, the plain version and SDPA's backward, with their design (wgmma at
+bf16 Dh 64), and timed at Dh 16, 32 and 128 too; and K1's multi-slide uint8 mode bit-equal to its plain version at
 the training bank's shape.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
@@ -431,45 +432,71 @@ def check_k45(device):
                   f"{'relative' if dt == torch.bfloat16 else 'absolute'}; two runs bit-identical")
             del q, k, v, do, out, lse, got, again, want
 
-    F = torch.nn.functional
+    def times(shape, plain):
+        """K5, K4 (K5 first: it writes the di that K4 reads), the backward,
+        SDPA's backward and, if ``plain``, the plain version, in ms, at
+        ``shape`` in bf16."""
+        b, h, n, dh = shape
+        scale = dh ** -0.5
+        q, k, v, do = (torch.randn(shape, device=device, generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        out, lse = att._forward(q, k, v, scale, with_lse=True)
+        do_, o_, lse_, di = att._bwd_operands(q, k, v, out, lse, do)
+        grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=device)
+        dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+        t = {"k5_ms": cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DQ, q, k, v, do_, o_, lse_,
+                                                        di, (dq,), scale), 20),
+             "k4_ms": cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DKV, q, k, v, do_, o_, lse_,
+                                                        di, (dk, dv), scale), 20),
+             "backward_ms": cuda_ms(lambda i: flash_attention_bwd(q, k, v, out, lse, do, scale),
+                                    20)}
+        if plain:
+            t["plain_ms"] = cuda_ms(
+                lambda i: flash_attention_bwd_ref(q, k, v, out, lse, do, scale), 3)
+        qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+        t["sdpa_backward_ms"] = cuda_ms(lambda i: torch.autograd.grad(
+            o_sdpa, (qs, ks, vs), do, retain_graph=True), 20)
+        return t
+
     b, h, n, dh = K45_SHAPES[0]
-    scale = dh ** -0.5
-    q, k, v, do = (torch.randn((b, h, n, dh), device=device, generator=gen).to(torch.bfloat16)
-                   for _ in range(4))
-    out, lse = att._forward(q, k, v, scale, with_lse=True)
-    do_, lse_, di = att._bwd_operands(q, k, v, out, lse, do)
-    grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=device)
-    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
-    dkv_ms = cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DKV, q, k, v, do_, lse_, di, (dk, dv),
-                                               scale), 20)
-    dq_ms = cuda_ms(lambda i: att._bwd_launch(att.KERNEL_DQ, q, k, v, do_, lse_, di, (dq,),
-                                              scale), 20)
-    bwd_ms = cuda_ms(lambda i: flash_attention_bwd(q, k, v, out, lse, do, scale), 20)
-    plain_ms = cuda_ms(lambda i: flash_attention_bwd_ref(q, k, v, out, lse, do, scale), 3)
-    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
-    sdpa_bwd_ms = cuda_ms(lambda i: torch.autograd.grad(o_sdpa, (qs, ks, vs), do,
-                                                        retain_graph=True), 20)
+    t = times(K45_SHAPES[0], plain=True)
+    dq_ms, dkv_ms, bwd_ms = t["k5_ms"], t["k4_ms"], t["backward_ms"]
+    plain_ms, sdpa_bwd_ms = t["plain_ms"], t["sdpa_backward_ms"]
     prod = 2 * b * h * n * n * dh  # one N×N×Dh product
     whole_bound = 5 * prod / BF16_FLOP_PER_S * 1e3
-    print(f"K4+K5 at ({b}, {h}, {n}, {dh}) bf16: K4 {dkv_ms:.4f} ms, K5 {dq_ms:.4f} ms, the "
-          f"backward (di, K4, K5) {bwd_ms:.4f} ms = {5 * prod / bwd_ms / 1e9:.1f} TFLOP/s of "
-          f"the 5-product bound {whole_bound:.4f} ms; plain {plain_ms:.3f} ms; SDPA backward "
-          f"{sdpa_bwd_ms:.4f} ms")
-    common = {"route": "cuda", "source": "deephisto_tpu_torch/csrc/attention_bwd.cu",
-              "plain_ms": plain_ms, "library_ms": sdpa_bwd_ms, "bound_by": "operations",
-              "backward_ms": bwd_ms, "backward_bound_ms": whole_bound}
     # each kernel's bound: the products its function needs from its inputs
-    # (K4: S, dP, dV, dK; K5: S, dP, dQ)
+    # (K5: S, dP, dQ; K4: S, dP, dV, dK)
+    dq_bound, dkv_bound = 3 * prod / BF16_FLOP_PER_S * 1e3, 4 * prod / BF16_FLOP_PER_S * 1e3
+    design = att.bwd_design(torch.bfloat16, dh)
+    print(f"K4+K5 ({design}) at ({b}, {h}, {n}, {dh}) bf16: K5 (dQ, di) {dq_ms:.4f} ms = "
+          f"{3 * prod / dq_ms / 1e9:.1f} TFLOP/s, {dq_bound / dq_ms:.1%} of its bound "
+          f"{dq_bound:.4f} ms; K4 (dK, dV) {dkv_ms:.4f} ms = {4 * prod / dkv_ms / 1e9:.1f} "
+          f"TFLOP/s, {dkv_bound / dkv_ms:.1%} of its bound {dkv_bound:.4f} ms; the backward "
+          f"(K5, K4) {bwd_ms:.4f} ms = {5 * prod / bwd_ms / 1e9:.1f} TFLOP/s, "
+          f"{whole_bound / bwd_ms:.1%} of the 5-product bound {whole_bound:.4f} ms; plain "
+          f"{plain_ms:.3f} ms; SDPA backward {sdpa_bwd_ms:.4f} ms")
+    # the other bf16 head widths at the same B, H, N (the mma.sync design)
+    by_width = {}
+    for w in (16, 32, 128):
+        by_width[w] = dict(times((b, h, n, w), plain=False), design=att.bwd_design(
+            torch.bfloat16, w))
+        print(f"K4+K5 ({by_width[w]['design']}) at ({b}, {h}, {n}, {w}) bf16: "
+              + ", ".join(f"{key} {val:.4f}" for key, val in by_width[w].items()
+                          if key != "design"))
+    common = {"route": "cuda", "source": "deephisto_tpu_torch/csrc/attention_bwd.cu",
+              "design": design, "plain_ms": plain_ms, "library_ms": sdpa_bwd_ms,
+              "bound_by": "operations", "backward_ms": bwd_ms, "backward_bound_ms": whole_bound,
+              "other_head_widths": by_width}
     return [
         dict(common, name=att.KERNEL_DKV, max_abs_err=err[att.KERNEL_DKV], ms=dkv_ms,
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
                       "(_flash_attention_bwd_dkv), from deephisto_tpu/models/vit.py:125,130",
-             bound_ms=4 * prod / BF16_FLOP_PER_S * 1e3, tflops=4 * prod / dkv_ms / 1e9),
+             bound_ms=dkv_bound, tflops=4 * prod / dkv_ms / 1e9),
         dict(common, name=att.KERNEL_DQ, max_abs_err=err[att.KERNEL_DQ], ms=dq_ms,
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
                       "(_flash_attention_bwd_dq), from deephisto_tpu/models/vit.py:125,130",
-             bound_ms=3 * prod / BF16_FLOP_PER_S * 1e3, tflops=3 * prod / dq_ms / 1e9),
+             bound_ms=dq_bound, tflops=3 * prod / dq_ms / 1e9),
     ]
 
 

@@ -1,7 +1,9 @@
 // Device helpers shared by the flash-attention kernels (K3 in attention.cu,
 // K4 and K5 in attention_bwd.cu): cp.async tile loads, ldmatrix, the
 // m16n8k16 bf16 mma.sync with f32 accumulators, ex2.approx, bf16 packing,
-// operand strides and the device guard of the C entry points.
+// the row sums di = Σ O∘dO, operand strides, the device guard of the C entry
+// points, and Hopper's 128-byte swizzled tiles, wgmma descriptors, wgmma
+// m64n64k16 (A from shared memory or registers) and its fences.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4·g + c): an accumulator
 // d[0..3] holds rows g, g, g+8, g+8 and columns 2c, 2c+1, 2c, 2c+1 of its
@@ -167,6 +169,189 @@ __device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* dst, int64_t row_
       *reinterpret_cast<uint32_t*>(out + d * 8) =
           pack_bf16(acc[d][2 * r] * s, acc[d][2 * r + 1] * s);
   }
+}
+
+// di = Σ_d O∘dO in f32 for the 64 rows row0.. of one head, by 128 threads (two
+// per row, each half the row, read as 16-byte loads), into sD[0..64) and
+// di[row0..row0 + 64) of a buffer padded to a multiple of 64 rows; rows >= n
+// get di = 0. O and dO rows are 16-byte aligned.
+template <int DH>
+__device__ __forceinline__ void row_di(float* sD, float* di, const __nv_bfloat16* o, int64_t so_n,
+                                       const __nv_bfloat16* dout, int64_t sdo_n, int row0, int n) {
+  const int r = threadIdx.x / 2, half = threadIdx.x % 2, row = row0 + r;
+  float s = 0.f;
+  if (row < n) {
+    const __nv_bfloat16* po = o + int64_t(row) * so_n + half * (DH / 2);
+    const __nv_bfloat16* pd = dout + int64_t(row) * sdo_n + half * (DH / 2);
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) {
+      const uint4 a = *reinterpret_cast<const uint4*>(po + c * 8);
+      const uint4 b = *reinterpret_cast<const uint4*>(pd + c * 8);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fa = __bfloat1622float2(a2[e]), fb = __bfloat1622float2(b2[e]);
+        s = fmaf(fa.x, fb.x, s);
+        s = fmaf(fa.y, fb.y, s);
+      }
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if (half == 0) sD[r] = di[row] = s;
+}
+
+// ---- Hopper: 128-byte swizzled tiles and wgmma (sm_90a) ---------------------
+//
+// A 64 × 64 bf16 tile (a 128-byte row per tile row) lies in shared memory in
+// the 128-byte swizzled layout that TMA's SWIZZLE_128B writes and wgmma's B128
+// descriptors read: row r at byte r·128, its 16-byte chunk c at chunk
+// c ^ (r % 8), the tile's base 1024-byte aligned (the swizzle acts on address
+// bits 4-9). One such tile serves as a K-major operand (its rows are the
+// product's M or N, its 64 columns the reduction, e.g. Q in S = Q·Kᵀ) and as
+// an MN-major one (its rows are the reduction, its columns N, e.g. K in
+// dQ = dS·K; the transpose bit of the bf16 wgmma). Both descriptors step from
+// one 8-row group to the next by 1024 bytes (SBO). LBO is not read for a
+// swizzled K-major operand (1, as CUTLASS writes it); for an MN-major one it
+// is the step between 64-column chunks, which a tile only 64 columns wide
+// never takes, and it is given 1024 too. A 16-deep k-step moves a K-major
+// descriptor 32 bytes along the rows and an MN-major one 16 rows (2048
+// bytes) down.
+//
+// wgmma.m64n64k16 with f32 accumulators: warp w of the warpgroup holds rows
+// 16w..16w+15 of the 64 × 64 result in the mma.sync m16n8 accumulator layout
+// above (float[8][4]: 8 column tiles of 8), and an A operand in registers is
+// the m16n8k16 A fragment of those 16 rows; so pack_a_frags turns one
+// product's accumulators into the next one's A operand here too.
+
+constexpr int kSwTileBytes = kTile * 128;  // one 64 × 64 bf16 tile
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo_bytes) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(lbo_bytes >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc_k(uint32_t saddr) { return sw128_desc(saddr, 16); }
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t saddr) { return sw128_desc(saddr, 1024); }
+constexpr uint64_t kDescKStep = 32 >> 4;     // K-major: 16 columns
+constexpr uint64_t kDescMNStep = 2048 >> 4;  // MN-major: 16 rows
+
+// wgmma's ordering: wgmma_fence before a chain of products whose registers
+// other instructions wrote, wgmma_commit to close the chain into a group,
+// wgmma_wait<N> until at most N groups are in flight. A divergent branch near
+// them makes ptxas serialize every wgmma of the function (warning C7520), so
+// the code around them is kept free of branches.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators at this point of the program: the compiler may not
+// move their reads or writes across it (so none crosses a wgmma_wait).
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[t][e])::"memory");
+}
+
+// The same for A operands in registers: they stay live, and unchanged, until
+// the wgmma_wait that covers the products reading them.
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[kk][e])::"memory");
+}
+
+#define FLASH_WGMMA_D                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FLASH_WGMMA_ROW(d, t) "+f"(d[t][0]), "+f"(d[t][1]), "+f"(d[t][2]), "+f"(d[t][3])
+#define FLASH_WGMMA_OUT(d)                                                            \
+  FLASH_WGMMA_ROW(d, 0), FLASH_WGMMA_ROW(d, 1), FLASH_WGMMA_ROW(d, 2),                \
+      FLASH_WGMMA_ROW(d, 3), FLASH_WGMMA_ROW(d, 4), FLASH_WGMMA_ROW(d, 5),            \
+      FLASH_WGMMA_ROW(d, 6), FLASH_WGMMA_ROW(d, 7)
+
+// d += A·B over one 16-deep step, A (64 × 16) and B (16 × 64) both K-major
+// in swizzled shared memory (descriptors a, b).
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WGMMA_D
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FLASH_WGMMA_OUT(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A·B over one 16-deep step, A the m16n8k16 fragments of this warp's 16
+// rows in registers, B (16 × 64) MN-major in swizzled shared memory.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_WGMMA_D
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FLASH_WGMMA_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- Hopper: TMA, mbarriers, warp specialisation ----------------------------
+//
+// A tile of a (B, H, N, Dh) bf16 operand is one TMA box of a 4-d tensor map
+// {Dh, N, H, B} (encode_tile_map): 64 rows × 64 columns into the 128-byte
+// swizzled layout above, rows >= N filled with zeros by the copy engine. The
+// copy reports its bytes to an mbarrier; consumers wait on the barrier's
+// phase parity (round r of a barrier completes phase r, parity r & 1).
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes initialised barriers visible to the async proxy (the copy engine).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  // labels are local to the braces' scope, so the asm may be inlined often
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The 64 × 64 box at rows row0.. of head (b, h) into shared address dst.
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const void* map, int row0, int h, int b,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(map), "r"(0), "r"(row0), "r"(h), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// Register budgets of a producer and a consumer warpgroup (all four warps
+// execute it).
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+// A barrier of `threads` threads (a multiple of 32) on hardware barrier id.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Makes `device` current for one call and gives the caller's device back.

@@ -4,8 +4,10 @@
 ``flash_attention`` is kernel K3 (``csrc/attention.cu``), the port of the
 Pallas TPU flash-attention forward that the JAX ViT runs from
 ``FLASH_MIN_SEQ`` tokens up, as a ``torch.autograd.Function`` whose backward
-is kernels K4 (dK, dV) and K5 (dQ) of ``csrc/attention_bwd.cu``, the ports of
-the Pallas TPU backward kernels that the JAX ViT reaches under grad.
+is kernels K5 (dQ, and the row sums di = Σ O∘dO) and K4 (dK, dV) of
+``csrc/attention_bwd.cu``, the ports of the Pallas TPU backward kernels that
+the JAX ViT reaches under grad; :func:`bwd_design` names the design they
+take for a dtype and head width.
 ``flash_attention_ref`` and ``flash_attention_bwd_ref`` are their plain
 versions. ``attention_plain`` is the port of the jnp branch the JAX ViT runs
 below that length (vit.py:135-137): it is what XLA ran there, not a kernel's
@@ -34,12 +36,15 @@ _SIGNATURE = {
 }
 _BWD_SIGNATURE = {
     "dh_flash_attention_bwd_dkv": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
     ],
     "dh_flash_attention_bwd_dq": [
-        _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
     ],
 }
+# the backward kernels' designs, by the codes of csrc/attention_bwd.cu:Design
+BWD_DESIGNS = {"simt": 0, "mma.sync": 1, "wgmma": 2}
+_TILE = 64  # rows of the kernels' tiles: the di buffer is padded to a multiple
 
 
 def flash_attention_ref(q, k, v, scale: float, return_lse: bool = False):
@@ -104,14 +109,20 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention takes Dh in {HEAD_DIMS}, got {q.shape[-1]}")
 
 
+def _rows_16b(t: torch.Tensor) -> bool:
+    """bf16 rows as the kernels copy them (16-byte cp.async and TMA): a
+    16-byte aligned base and strides of 8 elements."""
+    return t.dtype != torch.bfloat16 or not (
+        t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+    )
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    """What the kernel reads: unit stride along Dh and, for bf16 (16-byte
-    cp.async rows), a 16-byte aligned base and strides of 8 elements."""
+    """What the kernel reads: unit stride along Dh and, for bf16, 16-byte
+    rows (:func:`_rows_16b`)."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs unit stride along Dh, got strides {t.stride()}")
-    if t.dtype == torch.bfloat16 and (
-        t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
-    ):
+    if not _rows_16b(t):
         raise ValueError(
             f"bfloat16 {name} needs a 16-byte aligned base and strides that are "
             f"multiples of 8 elements, got strides {t.stride()}"
@@ -151,54 +162,84 @@ def _forward(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def _bwd_launch(kernel: str, q, k, v, do, lse, di, grads, scale: float) -> None:
-    """One launch of K4 (``grads`` = (dk, dv)) or K5 (``grads`` = (dq,))."""
+def bwd_design(dtype: torch.dtype, dh: int) -> str:
+    """The design of K4 and K5 for inputs of ``dtype`` and head width ``dh``:
+    ``"wgmma"`` for bf16 at Dh 64 (the ViT-S and ViT-B head width),
+    ``"mma.sync"`` for bf16 at Dh 16, 32 and 128, ``"simt"`` for f32. The
+    one place the choice is made: the launches pass it to the kernels' entry
+    points, which refuse a design that has no kernel for the dtype and Dh."""
+    if dtype not in _ELEM_BYTES or dh not in HEAD_DIMS:
+        raise ValueError(f"the attention backward takes bfloat16 or float32 at Dh in "
+                         f"{HEAD_DIMS}, got {dtype} at Dh {dh}")
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if dh == 64 else "mma.sync"
+
+
+def _bwd_launch(kernel: str, q, k, v, do, o, lse, di, grads, scale: float) -> None:
+    """One launch of K5 (``grads`` = (dq,); it also writes ``di``) or K4
+    (``grads`` = (dk, dv); it reads ``di`` and not ``o``)."""
     dev = q.device
     b, h, n, dh = q.shape
     lib = _build.load("attention_bwd", _BWD_SIGNATURE)
-    fn = lib.dh_flash_attention_bwd_dkv if kernel == KERNEL_DKV else lib.dh_flash_attention_bwd_dq
-    err = fn(
-        dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), *(g.data_ptr() for g in grads), b, h, n, dh, _ELEM_BYTES[q.dtype],
-        _strides(q, k, v, do, *grads), float(scale), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    design = BWD_DESIGNS[bwd_design(q.dtype, dh)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == KERNEL_DQ:
+        (dq,) = grads
+        err = lib.dh_flash_attention_bwd_dq(
+            dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, n, dh, _ELEM_BYTES[q.dtype],
+            design, _strides(q, k, v, do, dq, o), float(scale), stream,
+        )
+    else:
+        dk, dv = grads
+        err = lib.dh_flash_attention_bwd_dkv(
+            dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, dh, _ELEM_BYTES[q.dtype],
+            design, _strides(q, k, v, do, dk, dv), float(scale), stream,
+        )
     _build.check(lib, err, kernel)
     _build.count_launch(kernel)
 
 
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with unit stride along Dh and 16-byte rows, copied if autograd
+    or the caller handed over another layout."""
+    return t if t.stride(-1) == 1 and _rows_16b(t) else t.contiguous()
+
+
 def _bwd_operands(q, k, v, o, lse, do):
-    """Checks the backward's operands on the card and returns (do, lse, di)
-    as the kernels read them: dO with unit stride along Dh and 16-byte rows
-    (copied if autograd handed over another layout), lse contiguous, and
-    di = Σ O∘dO (f32, (B, H, N)), a torch op as on the TPU (an XLA op)."""
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(
-            f"do must match q: got {tuple(do.shape)} {do.dtype} {do.device}"
-        )
-    if do.stride(-1) != 1 or (
-        do.dtype == torch.bfloat16 and (do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]))
-    ):
-        do = do.contiguous()
+    """Checks the backward's operands on the card and returns (do, o, lse,
+    di) as the kernels read them: dO and O with unit stride along Dh and
+    16-byte rows, lse contiguous, and the f32 (B, H, N64) buffer, N rounded
+    up to a multiple of 64, into which K5 writes di = Σ O∘dO (0 past N) for
+    K4 to read."""
+    for name, t in (("do", do), ("o", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"{name} must match q: got {tuple(t.shape)} {t.dtype} {t.device}"
+            )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
-    di = (o.float() * do.float()).sum(dim=-1).contiguous()
-    return do, lse.contiguous(), di
+    b, h, n, _ = q.shape
+    di = torch.empty((b, h, -(-n // _TILE) * _TILE), dtype=torch.float32, device=q.device)
+    return _kernel_layout(do), _kernel_layout(o), lse.contiguous(), di
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     """K4 and K5: (dq, dk, dv) of ``flash_attention`` at output ``o`` with
     the lse residual of K3 and the output gradient ``do``. Tensors on the CPU
-    take :func:`flash_attention_bwd_ref`; on the card K4 writes dK and dV and
-    K5 dQ, all three into one (B, N, 3, H, Dh) buffer, the layout of the
-    ViT's qkv projection; the gradients are views of it."""
+    take :func:`flash_attention_bwd_ref`; on the card K5 writes dQ and di,
+    then K4 dK and dV, all three gradients into one (B, N, 3, H, Dh) buffer,
+    the layout of the ViT's qkv projection; the gradients are views of it."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
-    do, lse, di = _bwd_operands(q, k, v, o, lse, do)
+    do, o, lse, di = _bwd_operands(q, k, v, o, lse, do)
     b, h, n, dh = q.shape
     grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=q.device)
     dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
-    _bwd_launch(KERNEL_DKV, q, k, v, do, lse, di, (dk, dv), scale)
-    _bwd_launch(KERNEL_DQ, q, k, v, do, lse, di, (dq,), scale)
+    _bwd_launch(KERNEL_DQ, q, k, v, do, o, lse, di, (dq,), scale)
+    _bwd_launch(KERNEL_DKV, q, k, v, do, o, lse, di, (dk, dv), scale)
     return dq, dk, dv
 
 

@@ -4,6 +4,9 @@ the machine with the card: ``python -m pytest -m gpu tests/test_torch_kernels.py
 The ``gpu`` tests decide in their body whether a card is present and skip
 without one."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ from deephisto_tpu_torch.ops import (
     scatter_add_map_exact,
     scatter_add_map_ref,
 )
+from deephisto_tpu_torch.ops import attention as att
 from deephisto_tpu_torch.ops.attention import _forward as flash_forward
 
 
@@ -144,6 +148,36 @@ def _k3_error(got, want, dtype):
     return err / float(want.float().abs().max()) if dtype == torch.bfloat16 else err
 
 
+@pytest.mark.parametrize("dtype,dh,design", [
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "mma.sync"),
+    (torch.bfloat16, 32, "mma.sync"),
+    (torch.bfloat16, 128, "mma.sync"),
+    (torch.float32, 16, "simt"),
+    (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"),
+])
+def test_backward_design_by_dtype_and_head_width(dtype, dh, design):
+    """The (dtype, Dh) -> design dispatch of K4 and K5, as the wrapper hands
+    it to the kernels' entry points (which refuse any other)."""
+    assert att.bwd_design(dtype, dh) == design
+
+
+def test_backward_design_codes_are_the_kernels_enum():
+    """The codes the wrapper passes are those of csrc/attention_bwd.cu:Design."""
+    src = (Path(att.__file__).parents[1] / "csrc" / "attention_bwd.cu").read_text()
+    enum = re.search(r"enum Design : int \{([^}]*)\}", src).group(1)
+    codes = {name: int(code) for name, code in re.findall(r"k(\w+) = (\d+)", enum)}
+    assert codes == {"Simt": att.BWD_DESIGNS["simt"], "MmaSync": att.BWD_DESIGNS["mma.sync"],
+                     "Wgmma": att.BWD_DESIGNS["wgmma"]}
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float16, 64), (torch.bfloat16, 48)])
+def test_backward_design_refuses_what_no_kernel_takes(dtype, dh):
+    with pytest.raises(ValueError, match="backward takes"):
+        att.bwd_design(dtype, dh)
+
+
 @pytest.mark.gpu
 def test_flash_attention_kernel_matches_plain_on_card():
     _need_card()
@@ -200,14 +234,29 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
 K45_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
+def _k45_error(got, want, wants, dtype):
+    """As _k3_error, for one of the three gradients ``wants``: in bf16 the
+    scale is the gradient's largest |value|, but at least 1e-3 of the
+    largest |value| of any of the three, so that a gradient that is zero in
+    exact arithmetic (dQ and dK at N = 1, where P = 1 and dP - di cancels) is
+    held to the scale of the others, not to its own rounding noise."""
+    if dtype != torch.bfloat16:
+        return _k3_error(got, want, dtype)
+    err = float((got.float() - want.float()).abs().max())
+    top = max(float(w.float().abs().max()) for w in wants)
+    return err / max(float(want.float().abs().max()), 1e-3 * top)
+
+
 @pytest.mark.gpu
 def test_flash_attention_backward_kernels_match_plain_on_card():
     """K4 and K5 against their plain version at the residuals K3 writes, at
-    a ragged N, N < 64 and each head width; K3's lse against the plain
-    version's; two runs bit-identical."""
+    ragged N (the wgmma design at Dh 64: N = 1, 65, 300, 784, 1000), N < 64
+    and each head width; K3's lse against the plain version's; two runs
+    bit-identical."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for b, h, n, dh in [(2, 3, 1000, 64), (3, 2, 200, 16), (1, 2, 37, 32), (1, 2, 130, 128)]:
+    shapes = [(2, 3, n, 64) for n in (1, 65, 300, 784, 1000)]
+    for b, h, n, dh in shapes + [(3, 2, 200, 16), (1, 2, 37, 32), (1, 2, 130, 128)]:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v, do = (torch.randn((b, h, n, dh), device="cuda", generator=gen).to(dt)
                            for _ in range(4))
@@ -223,10 +272,34 @@ def test_flash_attention_backward_kernels_match_plain_on_card():
             want = flash_attention_bwd_ref(q, k, v, out, lse, do, scale)
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
                 assert g.shape == w.shape and g.dtype == dt
-                err = _k3_error(g, w, dt)
+                err = _k45_error(g, w, want, dt)
                 assert err <= K45_TOL[dt], (b, h, n, dh, dt, name, err)
             again = flash_attention_bwd(q, k, v, out, lse, do, scale)
             assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_di_written_by_k5_on_card():
+    """The di buffer K5 writes for K4: Σ O∘dO in f32 per query row, within
+    1e-5 of the largest |di| of the torch sum (another summation order of
+    the same exact products), and 0 past N up to the next multiple of 64."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for b, h, n, dh, dt in [(2, 3, 300, 64, torch.bfloat16), (2, 3, 65, 16, torch.bfloat16),
+                            (1, 2, 130, 128, torch.bfloat16), (2, 3, 100, 64, torch.float32)]:
+        q, k, v, do = (torch.randn((b, h, n, dh), device="cuda", generator=gen).to(dt)
+                       for _ in range(4))
+        out, lse = flash_forward(q, k, v, dh**-0.5, with_lse=True)
+        do_, o_, lse_, di = att._bwd_operands(q, k, v, out, lse, do)
+        assert di.shape == (b, h, -(-n // 64) * 64) and di.dtype == torch.float32
+        di.fill_(float("nan"))
+        dq = torch.empty_like(q)
+        att._bwd_launch(att.KERNEL_DQ, q, k, v, do_, o_, lse_, di, (dq,), dh**-0.5)
+        torch.cuda.synchronize()
+        want = (out.float() * do.float()).sum(-1)
+        err = float((di[..., :n] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (n, dh, dt, err)
+        assert bool((di[..., n:] == 0).all()), (n, dh, dt)
 
 
 @pytest.mark.gpu
