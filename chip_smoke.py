@@ -46,8 +46,10 @@ Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
 and Dh 16 and 32, times it beside its FLOP bound, its plain version and
 ``F.scaled_dot_product_attention`` (a yardstick only: the port never calls
-it), and times K3, the plain jnp-branch attention and SDPA at 196 and 784
-tokens; K5 and K4 (the flash-attention backward; K5 first, it writes the
+it), with its design (wgmma at bf16 Dh 64), also with the lse residual on
+views of one qkv projection (the train step's call), and times K3, the
+plain jnp-branch attention and SDPA at 196 and 784 tokens; K5 and K4 (the
+flash-attention backward; K5 first, it writes the
 di that K4 reads) against their plain version at the training shape, a
 ragged one, Dh 16/32/128 and f32, two runs bit-identical, timed beside their
 bounds, the plain version and SDPA's backward, with their design (wgmma at
@@ -294,6 +296,7 @@ def check_k2(dense, device):
 
 
 def check_k3(device):
+    from deephisto_tpu_torch.ops import attention as att
     from deephisto_tpu_torch.ops import attention_plain, flash_attention, flash_attention_ref
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -330,6 +333,13 @@ def check_k3(device):
     library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, scale=dh ** -0.5), 20)
     flops = 4 * b * h * n * n * dh
     nbytes = 4 * b * h * n * dh * 2
+    # the train step's call: with the lse residual, on views of one
+    # (B, N, 3, H, Dh) qkv projection
+    lse_ms = cuda_ms(lambda i: att._forward(q, k, v, dh ** -0.5, with_lse=True), 20)
+    proj = torch.randn((b, n, 3, h, dh), device=device, generator=gen).to(torch.bfloat16)
+    qs, ks, vs = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    qkv_lse_ms = cuda_ms(lambda i: att._forward(qs, ks, vs, dh ** -0.5, with_lse=True), 20)
+    del proj, qs, ks, vs
     seq = {}
     for n_tok in (196, 784):
         q2, k2, v2 = qkv(b, n_tok)
@@ -339,17 +349,23 @@ def check_k3(device):
             "sdpa_ms": cuda_ms(
                 lambda i: F.scaled_dot_product_attention(q2, k2, v2, scale=0.125), 20),
         }
+    bound_ms = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    design = att.attention_design(torch.bfloat16, dh)
+    print(f"K3 ({design}) at ({b}, {h}, {n}, {dh}) bf16: {ms:.4f} ms = "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms; "
+          f"plain {plain_ms:.3f} ms; SDPA forward {library_ms:.4f} ms; with lse {lse_ms:.4f} ms, "
+          f"with lse on qkv views {qkv_lse_ms:.4f} ms")
     print(f"K3 at ({b}, {h}, N, {dh}) bf16 by tokens N (ms): " + json.dumps(seq))
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "deephisto_tpu_torch/csrc/attention.cu",
+        "source": "deephisto_tpu_torch/csrc/attention.cu", "design": design,
         "replaces": "deephisto_tpu/models/vit.py:125 (jax.experimental.pallas.ops.tpu."
                     "flash_attention, flash_attention.py:131)",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S
         else "bytes",
-        "library_ms": library_ms, "tflops": flops / ms / 1e9, "by_tokens": seq,
+        "library_ms": library_ms, "tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
+        "lse_ms": lse_ms, "qkv_views_lse_ms": qkv_lse_ms, "by_tokens": seq,
     }
 
 
@@ -468,7 +484,7 @@ def check_k45(device):
     # each kernel's bound: the products its function needs from its inputs
     # (K5: S, dP, dQ; K4: S, dP, dV, dK)
     dq_bound, dkv_bound = 3 * prod / BF16_FLOP_PER_S * 1e3, 4 * prod / BF16_FLOP_PER_S * 1e3
-    design = att.bwd_design(torch.bfloat16, dh)
+    design = att.attention_design(torch.bfloat16, dh)
     print(f"K4+K5 ({design}) at ({b}, {h}, {n}, {dh}) bf16: K5 (dQ, di) {dq_ms:.4f} ms = "
           f"{3 * prod / dq_ms / 1e9:.1f} TFLOP/s, {dq_bound / dq_ms:.1%} of its bound "
           f"{dq_bound:.4f} ms; K4 (dK, dV) {dkv_ms:.4f} ms = {4 * prod / dkv_ms / 1e9:.1f} "
@@ -479,7 +495,7 @@ def check_k45(device):
     # the other bf16 head widths at the same B, H, N (the mma.sync design)
     by_width = {}
     for w in (16, 32, 128):
-        by_width[w] = dict(times((b, h, n, w), plain=False), design=att.bwd_design(
+        by_width[w] = dict(times((b, h, n, w), plain=False), design=att.attention_design(
             torch.bfloat16, w))
         print(f"K4+K5 ({by_width[w]['design']}) at ({b}, {h}, {n}, {w}) bf16: "
               + ", ".join(f"{key} {val:.4f}" for key, val in by_width[w].items()

@@ -31,7 +31,7 @@
 // 989 TFLOP/s, against ~1.2 GB of Q, K, V, O, dO, dQ, dK, dV, lse and di
 // moved once, 0.36 ms at 3.35 TB/s.
 //
-// The wrapper (ops/attention.py:bwd_design, the one place it is chosen)
+// The wrapper (ops/attention.py:attention_design, the one place it is chosen)
 // picks the design by (dtype, Dh) and passes it in; a design with no kernel
 // for the (dtype, Dh) it is given is refused, never replaced:
 //
@@ -63,18 +63,12 @@
 //   memory), so float32 models train on the card too; for correctness, not
 //   speed.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
 using bf16 = __nv_bfloat16;
-
-// the codes ops/attention.py:BWD_DESIGNS passes
-enum Design : int { kSimt = 0, kMmaSync = 1, kWgmma = 2 };
 
 // The lse (in log2 units) and di of query rows row0.. of one head into
 // shared memory: rows >= n get lse = +inf and di = 0, so P = dS = 0 there.
@@ -123,16 +117,7 @@ __device__ __forceinline__ void dq_scores(const float (&s)[8][4], float (&dp)[8]
   }
 }
 
-__device__ __forceinline__ void zero(float (&x)[8][4]) {
-#pragma unroll
-  for (int t = 0; t < 8; ++t) x[t][0] = x[t][1] = x[t][2] = x[t][3] = 0.f;
-}
-
 // ---- wgmma: bf16 at Dh 64 ---------------------------------------------------
-
-constexpr int kWgThreads = 128;  // one warpgroup
-
-__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
 
 // One streamed query tile of the wgmma K4 (cQ, cO: its Q and dO tiles; cL,
 // cD: their lse and di): Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ from shared memory (SS),
@@ -382,33 +367,6 @@ __global__ void __launch_bounds__(kTmaThreads, 2) flash_bwd_dq_tma(
     dq += b * sdq.b + h * sdq.h;
     store_rows_bf16<64>(dq, sdq.n, qt * kTile + warp * 16, n, acc, lane);
   }
-}
-
-// A 4-d TMA map {Dh, N, H, B} over a (B, H, N, 64) bf16 operand with unit
-// stride along Dh (16-byte aligned, strides of 8 elements: the wrapper
-// checks): 64 × 64 boxes into the 128-byte swizzled layout, rows past N read
-// as zeros. cuTensorMapEncodeTiled is looked up through the runtime
-// (cudaGetDriverEntryPoint), so the library links no libcuda.
-cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int batch, int heads, int n,
-                            const Strides& s) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[4] = {64, cuuint64_t(n), cuuint64_t(heads), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {cuuint64_t(s.n) * 2, cuuint64_t(s.h) * 2, cuuint64_t(s.b) * 2};
-  const cuuint32_t box[4] = {64, kTile, 1, 1}, elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // ---- mma.sync: bf16 at Dh 16, 32, 128 ---------------------------------------
@@ -892,7 +850,7 @@ int run(bool dkv, int device, const void* q, const void* k, const void* v, const
 // f32 (batch, heads, n). di: contiguous f32 (batch, heads, n rounded up to a
 // multiple of 64), written here. elem_bytes: 2 (bf16) or 4 (f32); dh: 16,
 // 32, 64, 128; design: 0 SIMT (f32), 1 mma.sync (bf16, Dh 16, 32, 128), 2
-// wgmma (bf16, Dh 64), as ops/attention.py:bwd_design chooses it.
+// wgmma (bf16, Dh 64), as ops/attention.py:attention_design chooses it.
 extern "C" int dh_flash_attention_bwd_dq(int device, const void* q, const void* k,
                                          const void* v, const void* dout, const void* o,
                                          const void* lse, void* di, void* dq, int batch,

@@ -1,9 +1,11 @@
 // Device helpers shared by the flash-attention kernels (K3 in attention.cu,
 // K4 and K5 in attention_bwd.cu): cp.async tile loads, ldmatrix, the
 // m16n8k16 bf16 mma.sync with f32 accumulators, ex2.approx, bf16 packing,
-// the row sums di = Σ O∘dO, operand strides, the device guard of the C entry
-// points, and Hopper's 128-byte swizzled tiles, wgmma descriptors, wgmma
-// m64n64k16 (A from shared memory or registers) and its fences.
+// the row sums di = Σ O∘dO, operand strides, the kernel designs, the device
+// guard of the C entry points, and Hopper's 128-byte swizzled tiles, wgmma
+// descriptors, wgmma m64n64k16 (A from shared memory or registers) and its
+// fences, mbarriers, TMA copies, setmaxnreg, and the host-side TMA map of an
+// operand (encode_tile_map).
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4·g + c): an accumulator
 // d[0..3] holds rows g, g, g+8, g+8 and columns 2c, 2c+1, 2c, 2c+1 of its
@@ -15,6 +17,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -24,7 +28,14 @@ namespace flash {
 
 constexpr int kTile = 64;   // rows per block tile and per streamed tile
 constexpr int kWarps = 4;   // bf16 paths: 16 rows of the block tile per warp
+constexpr int kWgThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The kernel designs of the three attention kernels, by the codes that
+// ops/attention.py:DESIGNS passes (ops/attention.py:attention_design chooses
+// one per dtype and head width; an entry point refuses a design that has no
+// kernel there).
+enum Design : int { kSimt = 0, kMmaSync = 1, kWgmma = 2 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -67,6 +78,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+__device__ __forceinline__ void zero(float (&x)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t) x[t][0] = x[t][1] = x[t][2] = x[t][3] = 0.f;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,6 +242,8 @@ __device__ __forceinline__ void row_di(float* sD, float* di, const __nv_bfloat16
 
 constexpr int kSwTileBytes = kTile * 128;  // one 64 × 64 bf16 tile
 
+__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
+
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo_bytes) {
   return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(lbo_bytes >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
@@ -352,6 +370,33 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // A barrier of `threads` threads (a multiple of 32) on hardware barrier id.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A 4-d TMA map {Dh, N, H, B} over a (B, H, N, 64) bf16 operand with unit
+// stride along Dh (16-byte aligned, strides of 8 elements: the wrapper
+// checks): 64 × 64 boxes into the 128-byte swizzled layout, rows past N read
+// as zeros. cuTensorMapEncodeTiled is looked up through the runtime
+// (cudaGetDriverEntryPoint), so the library links no libcuda. Host code.
+inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int batch, int heads,
+                                   int n, const Strides& s) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[4] = {64, cuuint64_t(n), cuuint64_t(heads), cuuint64_t(batch)};
+  const cuuint64_t strides[3] = {cuuint64_t(s.n) * 2, cuuint64_t(s.h) * 2, cuuint64_t(s.b) * 2};
+  const cuuint32_t box[4] = {64, kTile, 1, 1}, elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Makes `device` current for one call and gives the caller's device back.

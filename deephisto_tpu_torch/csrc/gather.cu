@@ -4,7 +4,8 @@
 // _gather_norm_kernel (gather_normalize_pallas, pl.pallas_call at :152), whose
 // function the exact predict path computes as gather_patches_xla + model_input:
 //   out[n, r, c, ch] = lut[slide[y_n + r, x_n + c, ch]]
-// where lut holds the wrapper's 256 values of u8 / 255 in the output type
+// with (y_n, x_n) the start indices clamped as gather_patches_xla's
+// lax.dynamic_slice clamps them (dynamic_slice_start), and where lut holds the wrapper's 256 values of u8 / 255 in the output type
 // (f32 or the bits of bf16), so the result is bit-identical to the plain
 // PyTorch version by construction.
 //
@@ -56,11 +57,18 @@ __device__ __forceinline__ uint4 pack4(uint32_t a, uint32_t b, uint32_t c, uint3
   return make_uint4(a, b, c, d);
 }
 
+// lax.dynamic_slice's start index: a negative one counts from the end, then
+// it is clamped so that the slice fits.
+__device__ __forceinline__ int dynamic_slice_start(int i, int extent, int size) {
+  i = i < 0 ? i + extent : i;
+  return min(max(i, 0), extent - size);
+}
+
 // T is the output's bit pattern: uint16_t for bf16, uint32_t for f32.
 // VEC4 requires ps*C % 4 == 0 (then every 4-group starts 4-aligned in `out`).
 template <typename T, bool VEC4>
 __global__ void __launch_bounds__(kThreads) gather_normalize_kernel(
-    const uint8_t* __restrict__ slide, int64_t slide_row, const int32_t* __restrict__ coords,
+    const uint8_t* __restrict__ slide, int height, int width, const int32_t* __restrict__ coords,
     int ps, int channels, const T* __restrict__ lut, T* __restrict__ out) {
   __shared__ T table[256];
   for (int i = threadIdx.x; i < 256; i += kThreads) table[i] = lut[i];
@@ -70,8 +78,10 @@ __global__ void __launch_bounds__(kThreads) gather_normalize_kernel(
   const int r0 = blockIdx.y * kRows;
   const int rows = min(kRows, ps - r0);
   const int row_len = ps * channels;
-  const uint8_t* src =
-      slide + (int64_t(coords[2 * n]) + r0) * slide_row + int64_t(coords[2 * n + 1]) * channels;
+  const int64_t slide_row = int64_t(width) * channels;
+  const int y = dynamic_slice_start(coords[2 * n], height, ps);
+  const int x = dynamic_slice_start(coords[2 * n + 1], width, ps);
+  const uint8_t* src = slide + (int64_t(y) + r0) * slide_row + int64_t(x) * channels;
   T* dst = out + (n * ps + r0) * row_len;
   if (VEC4) {
     const int quads = row_len / 4;
@@ -92,24 +102,20 @@ __global__ void __launch_bounds__(kThreads) gather_normalize_kernel(
 }
 
 template <typename T>
-void launch(const void* slide, int64_t width, int channels, const void* coords, int n, int ps,
-            const void* lut, void* out, cudaStream_t stream) {
+void launch(const void* slide, int height, int width, int channels, const void* coords, int n,
+            int ps, const void* lut, void* out, cudaStream_t stream) {
   const dim3 grid(n, (ps + kRows - 1) / kRows);
-  const int64_t slide_row = width * channels;
   const auto* s = static_cast<const uint8_t*>(slide);
   const auto* c = static_cast<const int32_t*>(coords);
   const auto* t = static_cast<const T*>(lut);
   auto* o = static_cast<T*>(out);
   if ((ps * channels) % 4 == 0) {
-    gather_normalize_kernel<T, true><<<grid, kThreads, 0, stream>>>(s, slide_row, c, ps, channels, t, o);
+    gather_normalize_kernel<T, true>
+        <<<grid, kThreads, 0, stream>>>(s, height, width, c, ps, channels, t, o);
   } else {
-    gather_normalize_kernel<T, false><<<grid, kThreads, 0, stream>>>(s, slide_row, c, ps, channels, t, o);
+    gather_normalize_kernel<T, false>
+        <<<grid, kThreads, 0, stream>>>(s, height, width, c, ps, channels, t, o);
   }
-}
-
-__device__ __forceinline__ int dynamic_slice_start(int i, int extent, int size) {
-  i = i < 0 ? i + extent : i;
-  return min(max(i, 0), extent - size);
 }
 
 __global__ void __launch_bounds__(kThreads) gather_multi_u8_kernel(
@@ -163,20 +169,21 @@ struct DeviceGuard {
 
 }  // namespace
 
-// slide: (H, width, channels) u8, contiguous; coords: (n, 2) int32 (y, x), each
-// patch inside the slide (the wrapper checks); lut: 256 outputs of out_bytes
-// each; out: (n, ps, ps, channels) of out_bytes (2: bf16, 4: f32).
-extern "C" int dh_gather_normalize(int device, const void* slide, int64_t width, int channels,
-                                   const void* coords, int n, int ps, const void* lut,
-                                   int out_bytes, void* out, void* stream) {
+// slide: (height, width, channels) u8, contiguous; coords: (n, 2) int32
+// (y, x), clamped as lax.dynamic_slice clamps them; ps <= height and
+// ps <= width (the wrapper checks); lut: 256 outputs of out_bytes each; out:
+// (n, ps, ps, channels) of out_bytes (2: bf16, 4: f32).
+extern "C" int dh_gather_normalize(int device, const void* slide, int height, int width,
+                                   int channels, const void* coords, int n, int ps,
+                                   const void* lut, int out_bytes, void* out, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   if (n > 0 && ps > 0) {
     auto s = static_cast<cudaStream_t>(stream);
     if (out_bytes == 2) {
-      launch<uint16_t>(slide, width, channels, coords, n, ps, lut, out, s);
+      launch<uint16_t>(slide, height, width, channels, coords, n, ps, lut, out, s);
     } else if (out_bytes == 4) {
-      launch<uint32_t>(slide, width, channels, coords, n, ps, lut, out, s);
+      launch<uint32_t>(slide, height, width, channels, coords, n, ps, lut, out, s);
     } else {
       return cudaErrorInvalidValue;
     }

@@ -1,6 +1,9 @@
 // K2: stitch. Adds each patch's vector over its footprint in a downscaled map:
 //   acc[y_i + a, x_i + b, :] += values[i, :]   for a < min(span_y_i, f), b < min(span_x_i, f)
-// with cells outside the map dropped (mode="drop").
+// with the indices of JAX's .at[yy, xx].add(mode="drop"): one in [-dh, 0)
+// (or [-dw, 0)) is first wrapped to the far edge, as NumPy indexing does, and
+// any cell still outside the map is dropped. So a patch that straddles row or
+// column 0 adds to up to four rectangles of the map.
 //
 // Replaces deephisto_tpu/ops/stitch.py:scatter_add_map (the XLA scatter-add at
 // :107 that scatter_add_map_exact calls; ROADMAP item B5). XLA lowered it on the
@@ -13,7 +16,8 @@
 //
 // Design: determinism. XLA applies a scatter's updates one after another in
 // index order. Here every map cell is owned by exactly one thread, which walks
-// the patches in index order and adds each one whose footprint covers it. So
+// the patches in index order and adds each one whose footprint covers it
+// (directly or wrapped), as often as it covers it. So
 // each cell gets the same f32 sums in the same order as the sequential loop,
 // with no atomics, and two runs give identical bits. A block owns a 16x16 tile
 // of cells and first asks, over all threads, whether any patch touches the tile;
@@ -40,6 +44,19 @@ __device__ __forceinline__ void footprint(const int32_t* __restrict__ coords,
   }
 }
 
+// The times cell index c of an axis of extent d is hit by a footprint
+// starting at y with span sy: once directly (c in [y, y + sy)), once more if
+// it is the wrap of an index in [-d, 0) (c in [y + d, min(y + sy, 0) + d)).
+__device__ __forceinline__ int hits(int64_t c, int64_t y, int sy, int d) {
+  return int(c >= y && c < y + sy) + int(c >= y + d && c < min(y + sy, int64_t(0)) + d);
+}
+
+// Whether [t0, t0 + kTile) meets the direct or (y < 0) the wrapped footprint.
+__device__ __forceinline__ bool meets(int64_t t0, int64_t y, int sy, int d) {
+  return (y < t0 + kTile && y + sy > t0) ||
+         (y < 0 && y + d < t0 + kTile && min(y + sy, int64_t(0)) + d > t0);
+}
+
 __global__ void __launch_bounds__(kThreads) scatter_add_map_kernel(
     float* __restrict__ acc, int dh, int dw, int channels, const int32_t* __restrict__ coords,
     const int32_t* __restrict__ spans, const float* __restrict__ values, int n, int f) {
@@ -51,20 +68,34 @@ __global__ void __launch_bounds__(kThreads) scatter_add_map_kernel(
   bool touched = false;
   for (int i = threadIdx.x; i < n && !touched; i += kThreads) {
     footprint(coords, spans, i, f, &y, &x, &sy, &sx);
-    touched = y < ty0 + kTile && y + sy > ty0 && x < tx0 + kTile && x + sx > tx0;
+    touched = meets(ty0, y, sy, dh) && meets(tx0, x, sx, dw);
   }
   if (!__syncthreads_or(touched)) return;
+  // whether any patch wraps: then the walk counts a footprint's hits of a cell
+  bool neg = false;
+  for (int i = threadIdx.x; i < n; i += kThreads) neg |= coords[2 * i] < 0 || coords[2 * i + 1] < 0;
+  const bool wraps = __syncthreads_or(neg);
 
   const int64_t cy = ty0 + threadIdx.x / kTile;
   const int64_t cx = tx0 + threadIdx.x % kTile;
   if (cy >= dh || cx >= dw) return;
   float* cell = acc + (cy * dw + cx) * channels;
+  if (!wraps) {  // every footprint on the map side of 0: one rectangle each
+    for (int i = 0; i < n; ++i) {
+      footprint(coords, spans, i, f, &y, &x, &sy, &sx);
+      if (cy >= y && cy < y + sy && cx >= x && cx < x + sx) {
+        const float* v = values + int64_t(i) * channels;
+        for (int c = 0; c < channels; ++c) cell[c] += v[c];
+      }
+    }
+    return;
+  }
   for (int i = 0; i < n; ++i) {
     footprint(coords, spans, i, f, &y, &x, &sy, &sx);
-    if (cy >= y && cy < y + sy && cx >= x && cx < x + sx) {
-      const float* v = values + int64_t(i) * channels;
+    const int times = hits(cy, y, sy, dh) * hits(cx, x, sx, dw);  // 2 only if f > dh or dw
+    const float* v = values + int64_t(i) * channels;
+    for (int t = 0; t < times; ++t)
       for (int c = 0; c < channels; ++c) cell[c] += v[c];
-    }
   }
 }
 

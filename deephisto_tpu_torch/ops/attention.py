@@ -6,8 +6,8 @@ Pallas TPU flash-attention forward that the JAX ViT runs from
 ``FLASH_MIN_SEQ`` tokens up, as a ``torch.autograd.Function`` whose backward
 is kernels K5 (dQ, and the row sums di = Σ O∘dO) and K4 (dK, dV) of
 ``csrc/attention_bwd.cu``, the ports of the Pallas TPU backward kernels that
-the JAX ViT reaches under grad; :func:`bwd_design` names the design they
-take for a dtype and head width.
+the JAX ViT reaches under grad; :func:`attention_design` names the design
+all three take for a dtype and head width.
 ``flash_attention_ref`` and ``flash_attention_bwd_ref`` are their plain
 versions. ``attention_plain`` is the port of the jnp branch the JAX ViT runs
 below that length (vit.py:135-137): it is what XLA ran there, not a kernel's
@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURE = {
     "dh_flash_attention": [
-        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
+        _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
     ]
 }
 _BWD_SIGNATURE = {
@@ -42,8 +42,8 @@ _BWD_SIGNATURE = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _P,
     ],
 }
-# the backward kernels' designs, by the codes of csrc/attention_bwd.cu:Design
-BWD_DESIGNS = {"simt": 0, "mma.sync": 1, "wgmma": 2}
+# the attention kernels' designs, by the codes of csrc/flash_common.cuh:Design
+DESIGNS = {"simt": 0, "mma.sync": 1, "wgmma": 2}
 _TILE = 64  # rows of the kernels' tiles: the di buffer is padded to a multiple
 
 
@@ -155,22 +155,23 @@ def _forward(q, k, v, scale: float, with_lse: bool):
     err = lib.dh_flash_attention(
         dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, b, h, n, dh, _ELEM_BYTES[q.dtype],
-        _strides(q, k, v, out), float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        DESIGNS[attention_design(q.dtype, dh)], _strides(q, k, v, out), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, KERNEL)
     _build.count_launch(KERNEL)
     return out, lse
 
 
-def bwd_design(dtype: torch.dtype, dh: int) -> str:
-    """The design of K4 and K5 for inputs of ``dtype`` and head width ``dh``:
-    ``"wgmma"`` for bf16 at Dh 64 (the ViT-S and ViT-B head width),
+def attention_design(dtype: torch.dtype, dh: int) -> str:
+    """The design of K3, K4 and K5 for inputs of ``dtype`` and head width
+    ``dh``: ``"wgmma"`` for bf16 at Dh 64 (the ViT-S and ViT-B head width),
     ``"mma.sync"`` for bf16 at Dh 16, 32 and 128, ``"simt"`` for f32. The
     one place the choice is made: the launches pass it to the kernels' entry
     points, which refuse a design that has no kernel for the dtype and Dh."""
     if dtype not in _ELEM_BYTES or dh not in HEAD_DIMS:
-        raise ValueError(f"the attention backward takes bfloat16 or float32 at Dh in "
-                         f"{HEAD_DIMS}, got {dtype} at Dh {dh}")
+        raise ValueError(f"flash attention and its backward take bfloat16 or float32 at "
+                         f"Dh in {HEAD_DIMS}, got {dtype} at Dh {dh}")
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if dh == 64 else "mma.sync"
@@ -182,7 +183,7 @@ def _bwd_launch(kernel: str, q, k, v, do, o, lse, di, grads, scale: float) -> No
     dev = q.device
     b, h, n, dh = q.shape
     lib = _build.load("attention_bwd", _BWD_SIGNATURE)
-    design = BWD_DESIGNS[bwd_design(q.dtype, dh)]
+    design = DESIGNS[attention_design(q.dtype, dh)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kernel == KERNEL_DQ:
         (dq,) = grads

@@ -25,7 +25,7 @@ KERNEL = "gather_normalize"
 KERNEL_MULTI = "gather_multi_u8"
 _SIGNATURE = {
     "dh_gather_normalize": [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ],
@@ -104,10 +104,10 @@ def gather_normalize_ref(
 
 
 def _coords_on(image: torch.Tensor, coords, ps: int) -> torch.Tensor:
-    """Check (N, 2) int32 coords against the slide and return them on the
-    slide's device. CPU coords are checked on the host and copied without
-    waiting (pinned memory makes the copy asynchronous); CUDA coords cost one
-    synchronising read of their bounds."""
+    """Check that ``coords`` are (N, 2) int32 and that a ps-px patch fits
+    the slide, and return them on the slide's device. Their values are not
+    read, so CUDA coords cost no synchronising read: the kernel clamps them
+    as :func:`_start` does."""
     coords = torch.as_tensor(coords)
     if coords.dtype != torch.int32 or coords.ndim != 2 or coords.shape[1] != 2:
         raise ValueError(
@@ -116,15 +116,6 @@ def _coords_on(image: torch.Tensor, coords, ps: int) -> torch.Tensor:
     h, w = image.shape[0], image.shape[1]
     if ps < 1 or ps > h or ps > w:
         raise ValueError(f"patch_size {ps} does not fit a {h}x{w} slide")
-    if len(coords):
-        lo = coords.amin(0).tolist()
-        hi = coords.amax(0).tolist()
-        if lo[0] < 0 or lo[1] < 0 or hi[0] > h - ps or hi[1] > w - ps:
-            raise ValueError(
-                f"coords out of range: y in [{lo[0]}, {hi[0]}], x in "
-                f"[{lo[1]}, {hi[1]}]; a {ps}-px patch of a {h}x{w} slide needs "
-                f"0 <= y <= {h - ps} and 0 <= x <= {w - ps}"
-            )
     return coords.to(image.device, non_blocking=True).contiguous()
 
 
@@ -133,7 +124,9 @@ def gather_normalize(
 ) -> torch.Tensor:
     """K1: (N, ps, ps, C) patches of ``u8 / 255`` in ``out_dtype`` (float32
     or bfloat16) from an (H, W, C) uint8 contiguous slide at (N, 2) int32
-    (y, x) coords. Raises on coords that leave the slide.
+    (y, x) coords, the start indices clamped as ``lax.dynamic_slice`` clamps
+    them in ``gather_patches_xla``: a negative one counts from the end, then
+    the patch is moved inside the slide (as :func:`gather_patches`).
 
     A slide on the CPU takes the plain version; a slide on a CUDA device
     launches the kernel (built at first use), and raises if it cannot."""
@@ -156,7 +149,7 @@ def gather_normalize(
     table = _device_table(out_dtype, image.device)
     lib = _build.load("gather", _SIGNATURE)
     err = lib.dh_gather_normalize(
-        image.device.index, image.data_ptr(), image.shape[1], c,
+        image.device.index, image.data_ptr(), image.shape[0], image.shape[1], c,
         coords.data_ptr(), n, ps, table.data_ptr(), _OUT_BYTES[out_dtype],
         out.data_ptr(), torch.cuda.current_stream(image.device).cuda_stream,
     )

@@ -6,9 +6,9 @@ patches in index order, as XLA's scatter and the plain loop do. Unlike the
 JAX functions, which return a new map, these add into ``acc_map`` in place
 (one map copy saved per batch) and return it.
 
-Out-of-range cells are dropped, negative ones included. (JAX's ``.at[]``
-first wraps indices in [-dh, 0) to the far edge; no caller passes negative
-map coords.)
+Map indices follow JAX's ``.at[yy, xx].add(mode="drop")``: one in
+[-dh, 0) (or [-dw, 0)) is first wrapped to the far edge, then every cell
+still off the map is dropped.
 """
 
 from __future__ import annotations
@@ -42,9 +42,18 @@ def coverage_footprint(patch_size: int, downscale: int) -> int:
     return patch_size // downscale + 1
 
 
+def _axis_parts(y: int, span: int, extent: int):
+    """The index ranges [lo, hi) of one axis that a footprint [y, y + span)
+    adds to: its cells on the map, then the wraps of its indices in
+    [-extent, 0) (empty ranges dropped)."""
+    parts = ((max(y, 0), min(y + span, extent)), (max(y + extent, 0), min(y + span, 0) + extent))
+    return [(lo, hi) for lo, hi in parts if lo < hi]
+
+
 def scatter_add_map_ref(acc_map, coords, values, footprint: int, spans=None):
     """Plain version of K2: the sequential loop, patch by patch in index
-    order (the reference's host ``+=``)."""
+    order (the reference's host ``+=``), each patch added to the up to four
+    rectangles its wrapped footprint covers."""
     dh, dw = acc_map.shape[0], acc_map.shape[1]
     vals = values.reshape(values.shape[0], -1).to(acc_map.dtype)
     cs = torch.as_tensor(coords).tolist()
@@ -53,10 +62,9 @@ def scatter_add_map_ref(acc_map, coords, values, footprint: int, spans=None):
         sy, sx = (footprint, footprint) if sp is None else (
             max(0, min(sp[i][0], footprint)), max(0, min(sp[i][1], footprint))
         )
-        y0, y1 = max(y, 0), min(y + sy, dh)
-        x0, x1 = max(x, 0), min(x + sx, dw)
-        if y0 < y1 and x0 < x1:
-            acc_map[y0:y1, x0:x1] += vals[i]
+        for y0, y1 in _axis_parts(y, sy, dh):
+            for x0, x1 in _axis_parts(x, sx, dw):
+                acc_map[y0:y1, x0:x1] += vals[i]
     return acc_map
 
 

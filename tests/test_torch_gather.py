@@ -87,15 +87,44 @@ def test_gather_patches_multi_matches_xla():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# coords that leave a 300x400 slide for 64-px patches, on each side, negative
+# ones included; lax.dynamic_slice counts a negative start from the end and
+# then clamps the patch inside the slide
+OFF_SLIDE = [[-1, 0], [0, -1], [300 - 63, 0], [0, 400 - 63], [-64, -400], [-301, 5],
+             [299, 399], [5000, -5000], [-7, 200], [150, 350]]
+
+
+def _jax_normalized(img, coords, ps, dtype):
+    """The JAX package's patches of ``u8 / 255`` at ``coords``: bf16 as
+    ``model_input ∘ gather_patches_xla``, f32 as the Pallas kernel scales
+    (``u8 · f32(1/255)``)."""
+    u8 = gather_patches_xla(jnp.asarray(img), jnp.asarray(coords), ps)
+    if dtype == torch.bfloat16:
+        return np.asarray(jax_model_input(object(), u8).astype(jnp.float32))
+    return np.asarray(u8).astype(np.float32) * np.float32(1.0 / 255.0)
+
+
 @pytest.mark.parametrize(
     "coords,match",
     [([[0, 0], [300 - 63, 0]], "out of range"), ([[-1, 0]], "out of range"),
      ([[0, 400 - 63]], "out of range")],
 )
 def test_gather_normalize_rejects_coords_off_the_slide(coords, match):
-    img = torch.from_numpy(_image())
-    with pytest.raises(ValueError, match=match):
-        gather_normalize(img, torch.tensor(coords, dtype=torch.int32), 64)
+    """Coords off the slide are not refused (``match`` is unused): K1 clamps
+    them as the JAX package's gather does."""
+    img = _image()
+    got = gather_normalize(torch.from_numpy(img), torch.tensor(coords, dtype=torch.int32), 64)
+    want = _jax_normalized(img, np.asarray(coords, np.int32), 64, torch.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_normalize_clamps_coords_off_the_slide_as_jax(dtype):
+    img = _image()
+    coords = np.concatenate([_coords(300, 400, 64), OFF_SLIDE]).astype(np.int32)
+    got = gather_normalize(torch.from_numpy(img), torch.from_numpy(coords), 64, dtype)
+    assert got.dtype == dtype and got.shape == (len(coords), 64, 64, 3)
+    np.testing.assert_array_equal(got.float().numpy(), _jax_normalized(img, coords, 64, dtype))
 
 
 def test_gather_normalize_rejects_bad_inputs():

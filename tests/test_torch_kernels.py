@@ -4,6 +4,7 @@ the machine with the card: ``python -m pytest -m gpu tests/test_torch_kernels.py
 The ``gpu`` tests decide in their body whether a card is present and skip
 without one."""
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -70,11 +71,16 @@ def test_scatter_add_map_ref_is_the_host_loop():
     dh, dw, c, f = 40, 50, 5, 9
     coords = rng.integers(-4, 52, size=(30, 2)).astype(np.int32)
     vals = rng.standard_normal((30, c)).astype(np.float32)
+    coords[:3] = [(-dh - 2, 0), (-3, -dw), (-45, 48)]  # dropped, wrapped, straddling
     got = scatter_add_map_ref(torch.zeros(dh, dw, c), coords, torch.from_numpy(vals), f)
-    want = np.zeros((dh + 2 * f, dw + 2 * f, c), np.float32)  # margin catches drops
-    for (y, x), v in zip(coords, vals):
-        want[y + f : y + 2 * f, x + f : x + 2 * f] += v
-    np.testing.assert_array_equal(got.numpy(), want[f : f + dh, f : f + dw])
+    want = np.zeros((dh, dw, c), np.float32)
+    for (y, x), v in zip(coords, vals):  # cell by cell, indices in [-d, 0) wrapped
+        for a in range(f):
+            for b in range(f):
+                yy, xx = y + a + (dh if y + a < 0 else 0), x + b + (dw if x + b < 0 else 0)
+                if 0 <= yy < dh and 0 <= xx < dw:
+                    want[yy, xx] += v
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
@@ -92,8 +98,27 @@ def test_gather_normalize_kernel_matches_plain_on_card():
     img = torch.from_numpy(_image(1024, 1536)).cuda()
     odd = gather_normalize(img, coords.cuda(), 57, torch.bfloat16)  # ps*C % 4 != 0
     assert torch.equal(odd, gather_normalize_ref(img, coords, 57, torch.bfloat16))
-    with pytest.raises(ValueError, match="out of range"):
-        gather_normalize(img, torch.tensor([[1024 - 223, 0]], dtype=torch.int32).cuda(), 224)
+    off = torch.tensor([[1024 - 223, 0]], dtype=torch.int32).cuda()  # clamped, not refused
+    assert torch.equal(gather_normalize(img, off, 224), gather_normalize_ref(img, off, 224))
+
+
+@pytest.mark.gpu
+def test_gather_normalize_kernel_clamps_off_slide_coords_on_card():
+    """K1 clamps coords that leave the slide on each side, negative ones
+    included, as its plain version (lax.dynamic_slice's rule) does."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    for ps, c in ((224, 3), (57, 3), (64, 48)):
+        img = torch.from_numpy(_image(700, 900, c)).cuda()
+        coords = rng.integers(-1200, 1200, size=(80, 2)).astype(np.int32)
+        coords[:8] = [(-1, 0), (0, -1), (700 - ps + 1, 0), (0, 900 - ps + 1), (-ps, -900),
+                      (-701, 5), (699, 899), (5000, -5000)]
+        for dt in (torch.float32, torch.bfloat16):
+            _build.reset_launches()
+            got = gather_normalize(img, torch.from_numpy(coords).cuda(), ps, dt)
+            torch.cuda.synchronize()
+            assert _build.launches["gather_normalize"] == 1
+            assert torch.equal(got, gather_normalize_ref(img, coords, ps, dt)), (ps, c, dt)
 
 
 @pytest.mark.gpu
@@ -127,13 +152,21 @@ def test_scatter_add_map_kernel_matches_plain_on_card():
         f = ps // d if ps % d == 0 else ps // d + 1
         want = scatter_add_map_ref(torch.zeros_like(runs[0]), coords // d, vals, f, spans)
         torch.testing.assert_close(runs[0], want, atol=1e-5, rtol=0)
-    one = scatter_add_map(
-        torch.zeros((4, 4, 1), device="cuda"),
-        torch.tensor([[-1, -1], [3, 3]], dtype=torch.int32), torch.ones(2, device="cuda"), 2,
-    )
-    want = torch.zeros((4, 4, 1))
-    want[0, 0] = want[3, 3] = 1.0
-    assert torch.equal(one.cpu(), want)
+    # negative map coords: wrapped from [-dh, 0), dropped below, straddling
+    # patches in up to four rectangles; f > dh hits a cell twice
+    rng = np.random.default_rng(7)
+    for (dh, dw), f, spans in (((256, 188), 14, False), ((200, 300), 15, True),
+                               ((9, 40), 12, False)):
+        coords = rng.integers([-dh - f, -dw - f], [dh + 2, dw + 2], size=(400, 2))
+        coords = torch.from_numpy(coords.astype(np.int32)).cuda()
+        vals = torch.randn(len(coords), 5, device="cuda")
+        sp = torch.randint(0, f + 2, (len(coords), 2), dtype=torch.int32).cuda() if spans else None
+        runs = [scatter_add_map(torch.zeros((dh, dw, 5), device="cuda"), coords, vals, f, sp)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+        want = scatter_add_map_ref(torch.zeros_like(runs[0]), coords, vals, f, sp)
+        assert torch.equal(runs[0], want), (dh, dw, f, spans)  # the same sums in the same order
 
 
 # K3's tolerances, as chip_smoke.py holds them: bf16 outputs within 1 % of the
@@ -160,22 +193,39 @@ def _k3_error(got, want, dtype):
 def test_backward_design_by_dtype_and_head_width(dtype, dh, design):
     """The (dtype, Dh) -> design dispatch of K4 and K5, as the wrapper hands
     it to the kernels' entry points (which refuse any other)."""
-    assert att.bwd_design(dtype, dh) == design
+    assert att.attention_design(dtype, dh) == design
+
+
+@pytest.mark.parametrize("dtype,dh,design", [
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "mma.sync"),
+    (torch.bfloat16, 32, "mma.sync"),
+    (torch.bfloat16, 128, "mma.sync"),
+    (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"),
+])
+def test_forward_design_by_dtype_and_head_width(dtype, dh, design):
+    """K3 takes its design from the same chooser as K4 and K5, and the
+    wrapper passes its code as the entry point's design argument."""
+    assert att.attention_design(dtype, dh) == design
+    argtypes = att._SIGNATURE["dh_flash_attention"]
+    assert len(argtypes) == 15 and argtypes[11] is ctypes.c_int  # ..., elem_bytes, design, ...
 
 
 def test_backward_design_codes_are_the_kernels_enum():
-    """The codes the wrapper passes are those of csrc/attention_bwd.cu:Design."""
-    src = (Path(att.__file__).parents[1] / "csrc" / "attention_bwd.cu").read_text()
+    """The codes the wrapper passes are those of csrc/flash_common.cuh:Design,
+    which K3's and K4/K5's entry points read."""
+    src = (Path(att.__file__).parents[1] / "csrc" / "flash_common.cuh").read_text()
     enum = re.search(r"enum Design : int \{([^}]*)\}", src).group(1)
     codes = {name: int(code) for name, code in re.findall(r"k(\w+) = (\d+)", enum)}
-    assert codes == {"Simt": att.BWD_DESIGNS["simt"], "MmaSync": att.BWD_DESIGNS["mma.sync"],
-                     "Wgmma": att.BWD_DESIGNS["wgmma"]}
+    assert codes == {"Simt": att.DESIGNS["simt"], "MmaSync": att.DESIGNS["mma.sync"],
+                     "Wgmma": att.DESIGNS["wgmma"]}
 
 
 @pytest.mark.parametrize("dtype,dh", [(torch.float16, 64), (torch.bfloat16, 48)])
 def test_backward_design_refuses_what_no_kernel_takes(dtype, dh):
-    with pytest.raises(ValueError, match="backward takes"):
-        att.bwd_design(dtype, dh)
+    with pytest.raises(ValueError, match="backward take"):
+        att.attention_design(dtype, dh)
 
 
 @pytest.mark.gpu
@@ -194,6 +244,20 @@ def test_flash_attention_kernel_matches_plain_on_card():
             assert got.shape == q.shape and got.dtype == dt
             err = _k3_error(got, flash_attention_ref(q, k, v, dh**-0.5), dt)
             assert err <= K3_TOL[dt], (b, h, n, dh, dt, err)
+    # the wgmma design's ragged edges (N < 64, one past a tile, the ViT's
+    # 784, 1000), with and without the lse residual of the backward
+    for n in (1, 63, 65, 784, 1000):
+        q, k, v = (torch.randn((2, 3, n, 64), device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        want, want_lse = flash_attention_ref(q, k, v, 0.125, return_lse=True)
+        for with_lse in (False, True):
+            got, lse = flash_forward(q, k, v, 0.125, with_lse=with_lse)
+            torch.cuda.synchronize()
+            assert _k3_error(got, want, torch.bfloat16) <= K3_TOL[torch.bfloat16], (n, with_lse)
+            if with_lse:
+                torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+            else:
+                assert lse is None
 
 
 @pytest.mark.gpu

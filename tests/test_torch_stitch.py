@@ -68,15 +68,27 @@ def test_scatter_add_map_with_spans_and_1d_values_matches_jax():
 
 
 def test_negative_cells_are_dropped():
-    # JAX's .at[] wraps indices in [-dh, 0) to the far edge before its "drop";
-    # the port drops every cell off the map (no caller passes negative coords)
-    acc = scatter_add_map(
-        torch.zeros((4, 4, 1)), torch.tensor([[-1, -1], [3, 3]], dtype=torch.int32),
-        torch.ones(2), 2,
-    )
-    want = np.zeros((4, 4), np.float32)
-    want[0, 0] = want[3, 3] = 1.0
-    np.testing.assert_array_equal(acc[..., 0].numpy(), want)
+    """Negative map coords as JAX's ``.at[].add(mode="drop")`` takes them:
+    indices in [-dh, 0) wrap to the far edge, those below -dh are dropped,
+    and a footprint that straddles row or column 0 lands in up to four
+    rectangles; fixed footprints and per-patch spans, f > the map's
+    height included (a cell hit twice by one patch)."""
+    rng = np.random.default_rng(4)
+    n, c = 60, 3
+    for (dh, dw), f in (((12, 17), 5), ((4, 9), 6)):
+        coords = rng.integers([-dh - f - 2, -dw - f - 2], [dh + 2, dw + 2], size=(n, 2))
+        coords[:4] = [(-1, -1), (-dh, 0), (-dh - 1, 3), (-2, dw - 2)]
+        coords = coords.astype(np.int32)
+        vals = rng.standard_normal((n, c)).astype(np.float32)
+        spans = rng.integers(0, f + 2, size=(n, 2)).astype(np.int32)
+        for sp in (None, spans):
+            want = np.asarray(jstitch.scatter_add_map(
+                jnp.zeros((dh, dw, c)), jnp.asarray(coords), jnp.asarray(vals), f,
+                spans=None if sp is None else jnp.asarray(sp)))
+            got = scatter_add_map(
+                torch.zeros((dh, dw, c)), torch.from_numpy(coords), torch.from_numpy(vals), f,
+                spans=None if sp is None else torch.from_numpy(sp))
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("ps,d", [(224, 16), (200, 16), (7, 16), (33, 4)])
