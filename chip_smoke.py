@@ -27,7 +27,28 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
 8. the ViT path vs the same model with the plain attention on a 2048² crop:
    argmax agreement and the largest score difference;
 9. profile of one ViT predict, by kernel group;
-10. training main path: the port's synthetic dataset (3 train slides of
+10. the card's attention threshold: a 196-token ViT-S/16 predict of the
+    8192² crop with the plain attention (threshold 512) and with K3
+    (threshold 196), in turns;
+11. the int8 ResNet-18: a seeded s2d-stem ResNet-18 (random BN statistics)
+    quantized by ``quantize_resnet`` on 32 seeded images of 224², as
+    bench.py does, its head centred: K6 (the int8
+    conv + epilogue) against its plain version on the inputs of every conv
+    of one exact-path batch (256 × 224²) and of one fcn tile batch (16 tiles
+    of 1152², bench.py's headline staging), both modes bit-equal, two runs
+    bit-identical, each timed beside its bound, its plain version and two
+    yardsticks that are not the same function (``torch._int_mm`` on the
+    im2col'd operand, cuDNN's bf16 conv);
+12. the exact int8 predict on the 16384² slide (K1's uint8 mode, K6, K2):
+    patches/s, peak memory, launches, profile, and on a 2048² crop the same
+    path with K6's plain version: maps equal, scores bit-equal;
+13. the fcn serving mode on the 16384² slide: bench.py's headline
+    (``stage_for_fcn(pack=8, pre_tile=True)``, pack_l1, tile 1024, halo 64,
+    16 tiles a step), then its pack-4 int8 and bf16 rows: equivalent
+    patches/s, staging seconds, peak memory, agreement with the exact int8
+    map (reported, not gated), a profile of the headline, and the headline
+    against its plain-K6 composition on the crop;
+14. training main path: the port's synthetic dataset (3 train slides of
     3072², hard, seed 7, as benchmarks/time_to_accuracy.py), the region
     sampler (patch 224, layer 2, 4 patches a region, one image a batch), a
     seeded full-width ``vit2p8`` in bf16, AdamW (lr 3e-4, wd 0.05),
@@ -35,12 +56,14 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     ``make_fused_epoch``: one untimed epoch, then timed epochs; steps/s,
     patches/s, peak memory, finite losses, and the launches a step (K1's
     multi-slide mode 1, K3, K4 and K5 6 each);
-11. one vit2p8 train step vs the same step with the plain attention (loss
+15. one vit2p8 train step vs the same step with the plain attention (loss
     and every parameter's gradient), and 8 steps on one batch that must
     lower its loss;
-12. ResNet-18 (s2d stem, Adam lr 1e-3) training through the same epoch:
+16. ResNet-18 (s2d stem, Adam lr 1e-3) training through the same epoch:
     finite losses, BatchNorm running statistics moved, steps/s;
-13. profile of one vit2p8 train step, by kernel group.
+17. one vit2p8 train step with the qkv gradient as K5/K4 write it and, in
+    turns, through the parent's three selects: step times and profiles by
+    kernel group (launches and time).
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -516,37 +539,41 @@ def check_k45(device):
     ]
 
 
-def run_main_path(slide, model, side, label):
-    """One warm-up predict, then the best of ``MAIN_TIMED_RUNS``, with every
-    launch count set to 0 just before and read just after. Checks the maps
-    and returns (launches, runs, best seconds, peak GiB, argmax map)."""
+def run_timed(fn, label, side, runs=MAIN_TIMED_RUNS):
+    """One warm-up call of ``fn`` (a predict of a ``side``² slide), then the
+    best of ``runs``, with every launch count set to 0 just before and read
+    just after. Checks the maps and returns (launches, calls, warm s, best
+    s, peak GiB, (argmax map, score map))."""
     from deephisto_tpu_torch import _build
-    from deephisto_tpu_torch.predict import predict_full_fused
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
+    out = fn()
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     best_s = float("inf")
-    for _ in range(MAIN_TIMED_RUNS):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        argmax_map, score_map = predict_full_fused(slide, model, N_CLASSES)
+        out = fn()
         torch.cuda.synchronize()
         best_s = min(best_s, time.perf_counter() - t0)
     launches = dict(_build.launches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    argmax_map, score_map = out
     if argmax_map.shape != (side // D,) * 2 or argmax_map.dtype != np.uint8:
         raise AssertionError(f"{label}: argmax map {argmax_map.shape} {argmax_map.dtype}")
     if int(argmax_map.max()) >= N_CLASSES:
         raise AssertionError(f"{label}: argmax map holds a class id >= n_classes")
-    if score_map.shape != (side // D, side // D, N_CLASSES):
+    if tuple(score_map.shape) != argmax_map.shape + (N_CLASSES,):
         raise AssertionError(f"{label}: score map {tuple(score_map.shape)}")
     if not bool(torch.isfinite(score_map).all()):
         raise AssertionError(f"{label}: score map is not finite")
-    return launches, 1 + MAIN_TIMED_RUNS, warm_s, best_s, peak_gib, argmax_map
+    print(f"{label}: warm-up {warm_s:.3f} s, best of {runs} {best_s:.4f} s; peak memory "
+          f"{peak:.2f} GiB; launches over {1 + runs} runs: {launches}")
+    return launches, 1 + runs, warm_s, best_s, peak, out
 
 
 def plain_predict(image, model):
@@ -571,7 +598,8 @@ def plain_predict(image, model):
 
 KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
     ("gather_normalize", "K1 gather_normalize"), ("scatter_add_map", "K2 scatter_add_map"),
-    ("gather_multi_u8", "K1 gather_multi_u8"), ("flash_fwd", "K3 flash_attention"),
+    ("gather_multi_u8", "K1 gather_multi_u8"), ("conv_int8", "K6 conv_int8"),
+    ("flash_fwd", "K3 flash_attention"),
     ("flash_bwd_dkv", "K4 flash_attention_bwd_dkv"), ("flash_bwd_dq", "K5 flash_attention_bwd_dq"),
     ("adam", "optimizer"), ("layer_norm", "LayerNorm"), ("gelu", "GELU"),
     ("batch_norm", "batch norm"), ("addpadding", "cuDNN input padding"),
@@ -602,7 +630,7 @@ def profile_device(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, groups, names = [], {}, {}
+    spans, groups, names, counts = [], {}, {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -610,6 +638,7 @@ def profile_device(fn) -> dict:
         spans.append((start, start + dur))
         group = next((g for k, g in KERNEL_GROUPS if k in e.name.lower()), "other")
         groups[group] = groups.get(group, 0.0) + dur
+        counts[group] = counts.get(group, 0) + 1
         names[e.name[:90]] = names.get(e.name[:90], 0.0) + dur
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
@@ -622,6 +651,7 @@ def profile_device(fn) -> dict:
         "wall_ms": wall_us / 1e3, "device_busy_share": busy / wall_us,
         "kernel_ms": kernel_us / 1e3,
         "groups_ms": {g: v / 1e3 for g, v in sorted(groups.items(), key=lambda x: -x[1])},
+        "group_launches": counts,
         "top_kernels_ms": {n: v / 1e3 for n, v in sorted(names.items(), key=lambda x: -x[1])[:12]},
     }
 
@@ -734,6 +764,251 @@ def vit_step_vs_plain(model, sampler, device):
             "overfit_losses": losses}
 
 
+# ---- int8: K6, the exact int8 predict and the fcn serving mode ------------
+
+INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
+CALIB_N = 32  # calibration images, as bench.py (rng.random((32, 224, 224, 3)))
+FCN_TILE, FCN_HALO, FCN_TB = 1024, 64, 16  # bench.py's headline fcn configuration
+INT8_CHECK_SIDE = 2048  # crop of the int8 paths vs their plain-K6 composition
+
+
+class RecordConvs:
+    """Within ``with``: every K6 call of the int8 ResNet is recorded (its
+    inputs, on the card) and, with ``plain=True``, served by K6's plain
+    version instead of the kernel (the plain-K6 composition)."""
+
+    def __init__(self, record=True, plain=False):
+        self.record, self.plain, self.calls = record, plain, []
+
+    def __enter__(self):
+        from deephisto_tpu_torch.models import quantize as qmod
+        from deephisto_tpu_torch.ops import conv_int8 as k6
+
+        self._saved = qmod.conv_f32, qmod.conv_to_int8
+
+        def wrap(fn, to_int8):
+            def conv(x, w, stride, pads, a, b):
+                if self.record:
+                    self.calls.append((x, w, stride, pads, a, b, to_int8))
+                if self.plain:
+                    return k6.conv_int8_ref(x, w, stride, pads, a, b, to_int8)
+                return fn(x, w, stride, pads, a, b)
+            return conv
+
+        qmod.conv_f32 = wrap(self._saved[0], False)
+        qmod.conv_to_int8 = wrap(self._saved[1], True)
+        return self
+
+    def __exit__(self, *exc):
+        from deephisto_tpu_torch.models import quantize as qmod
+
+        qmod.conv_f32, qmod.conv_to_int8 = self._saved
+
+
+def im2col(x, k: int, stride: int, pads) -> torch.Tensor:
+    """(M, K) int8 GEMM operand of an NHWC conv, K ordered (kh, kw, ci) as
+    the (Cout, KH, KW, Cin) kernel's rows."""
+    (pt, pb), (pl, pr) = pads
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+    n, hp, wp, c = xp.shape
+    oh, ow = (hp - k) // stride + 1, (wp - k) // stride + 1
+    cols = [xp[:, r:r + stride * (oh - 1) + 1:stride, s:s + stride * (ow - 1) + 1:stride]
+            for r in range(k) for s in range(k)]
+    return torch.cat(cols, dim=-1).reshape(n * oh * ow, k * k * c)
+
+
+def yardsticks(x, w, stride: int, pads) -> tuple:
+    """ms of ``torch._int_mm`` on the im2col'd operand of the same GEMM (the
+    im2col not timed) and of cuDNN's bf16 conv of the same shape: yardsticks,
+    not the same function (no epilogue, no int8 conv). A shape that a
+    library call refuses gets None and the reason is printed; the port
+    never calls either."""
+    F = torch.nn.functional
+    cout, k = w.shape[0], w.shape[1]
+    out = []
+    try:
+        cols = im2col(x, k, stride, pads)
+        wt = w.reshape(cout, -1).t()
+        out.append(cuda_ms(lambda i: torch._int_mm(cols, wt), 10))
+        del cols
+    except RuntimeError as e:
+        print(f"_int_mm yardstick at {tuple(x.shape)} x {tuple(w.shape)}: {str(e)[:200]}")
+        out.append(None)
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = w.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    (pt, pb), (pl, pr) = pads
+    if pt == pb and pl == pr:
+        out.append(cuda_ms(lambda i: F.conv2d(xb, wb, stride=stride, padding=(pt, pl)), 10))
+    else:
+        out.append(cuda_ms(lambda i: F.conv2d(F.pad(xb, (pl, pr, pt, pb)), wb, stride=stride), 10))
+    return tuple(out)
+
+
+def conv_bytes_ops(x, w, to_int8: bool, oh: int, ow: int) -> tuple[float, float]:
+    """Bytes a K6 call must move (input, kernel, constants read once, output
+    written once) and its operations (2 a multiply-add)."""
+    n = x.shape[0]
+    cout, kh, kw, cin = w.shape
+    m = n * oh * ow
+    nbytes = x.numel() + w.numel() + 8 * cout + m * cout * (1 if to_int8 else 4)
+    return nbytes, 2.0 * m * cout * kh * kw * cin
+
+
+def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
+    """K6 against its plain version on the recorded calls of each path (the
+    convs of one batch of the exact path and of one tile batch of the fcn
+    path): both modes bit-equal, two runs bit-identical; each distinct call
+    timed beside its bound, its plain version and two yardsticks that are
+    not the same function (``torch._int_mm`` on the im2col'd operand, and
+    cuDNN's bf16 conv of the same shape). Returns (the kernels-line entry,
+    per-path sums)."""
+    from deephisto_tpu_torch.ops import conv_int8 as k6
+
+    sums, rows, seen = {}, [], {}
+    for path, calls in calls_by_path.items():
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, int_mm_ms=0.0,
+                   cudnn_bf16_ms=0.0, calls=len(calls))
+        for x, w, stride, pads, a, b, to_int8 in calls:
+            outs = {}
+            for mode in (False, True):
+                got = k6.conv_int8(x, w, stride, pads, a, b, mode)
+                again = k6.conv_int8(x, w, stride, pads, a, b, mode)
+                torch.cuda.synchronize()
+                want = k6.conv_int8_ref(x, w, stride, pads, a, b, mode)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K6 is not deterministic at {tuple(x.shape)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K6 differs from its plain version at {tuple(x.shape)} "
+                                         f"x {tuple(w.shape)} stride {stride} int8 {mode}")
+                outs[mode] = got
+            key = (tuple(x.shape), tuple(w.shape), stride, pads, to_int8)
+            if key not in seen:
+                oh, ow = outs[to_int8].shape[1:3]
+                nbytes, ops = conv_bytes_ops(x, w, to_int8, oh, ow)
+                cout, k = w.shape[0], w.shape[1]
+                ms = cuda_ms(lambda i: k6.conv_int8(x, w, stride, pads, a, b, to_int8), 10)
+                plain_ms = cuda_ms(lambda i: k6.conv_int8_ref(x, w, stride, pads, a, b, to_int8),
+                                   2, warmup=1)
+                int_mm_ms, cudnn_ms = yardsticks(x, w, stride, pads)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / INT8_OP_PER_S * 1e3
+                seen[key] = dict(path=path, x=list(x.shape), w=list(w.shape), stride=stride,
+                                 pads=[list(p) for p in pads], to_int8=to_int8, ms=ms,
+                                 plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                                 bound_ms=max(bytes_ms, ops_ms), tops=ops / ms / 1e9,
+                                 int_mm_ms=int_mm_ms, cudnn_bf16_ms=cudnn_ms)
+                rows.append(seen[key])
+                print(f"K6 conv_int8 [{path}] x {tuple(x.shape)} w {tuple(w.shape)} stride {stride} "
+                      f"pads {pads} {'int8' if to_int8 else 'f32'} out: bit-equal to the plain "
+                      f"version in both modes; {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s, bound "
+                      f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms > ops_ms else 'ops'}); "
+                      f"plain {plain_ms:.3f} ms; yardsticks (not the same function): _int_mm "
+                      f"{int_mm_ms} ms, cuDNN bf16 conv {cudnn_ms} ms")
+            r = seen[key]
+            for f in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+                tot[f] += r[f]
+            for f in ("int_mm_ms", "cudnn_bf16_ms"):
+                tot[f] = None if tot[f] is None or r[f] is None else tot[f] + r[f]
+            del outs
+        sums[path] = tot
+        print(f"K6 over the {len(calls)} convs of one {path} batch: " + json.dumps(tot))
+    main = sums["exact_int8_batch"]
+    entry = {
+        "name": "conv_int8", "route": "cuda", "source": "deephisto_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "deephisto_tpu/models/quantize.py:460 (conv_s32 / conv_f32 / conv_to_int8, "
+                    "XLA-lowered on the TPU)",
+        "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes" if main["bytes_ms"] > main["ops_ms"] else "operations",
+        "library_ms": None,
+        "note": "ms, plain_ms and bound_ms sum the 20 convs of one exact-path batch of 256",
+        "yardsticks_not_the_same_function": {
+            p: {"int_mm_ms": s["int_mm_ms"], "cudnn_bf16_conv_ms": s["cudnn_bf16_ms"]}
+            for p, s in sums.items()},
+        "by_path": sums, "by_call": rows,
+    }
+    return entry, sums
+
+
+def seeded_int8(device, model, slide, dense):
+    """``quantize_resnet`` of ``model`` on CALIB_N seeded [0, 1) images of
+    224² (as bench.py calibrates), its head centred over patches spread
+    across the slide. Returns (exact model, pack_l1 model sharing its
+    buffers, seconds)."""
+    import copy
+
+    from deephisto_tpu_torch.models import quantize_resnet
+    from deephisto_tpu_torch.ops import gather_multi_u8
+
+    rng = np.random.default_rng(SEED + 11)
+    calib = [rng.random((CALIB_N, PS, PS, 3)).astype(np.float32)]
+    t0 = time.perf_counter()
+    qmodel = quantize_resnet(model, calib)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    coords = dense[:: max(1, len(dense) // 64)][:64]
+    x = gather_multi_u8(slide[None], torch.zeros(len(coords), dtype=torch.int32), coords, PS)
+    with torch.inference_mode():
+        feats = qmodel(x, features=True).float().mean(dim=(1, 2))
+    qmodel.fc_bias -= feats.mean(0) @ qmodel.fc_kernel
+    qpack = copy.copy(qmodel)  # the same buffers; pack_l1 is math in the port
+    qpack.pack_l1 = True
+    return qmodel, qpack, secs
+
+
+def int8_vs_plain(fn, label):
+    """``fn()`` (a predict) with K6, then with K6's plain version on the
+    card: maps equal and scores bit-equal (the rest of the path is the
+    same kernels)."""
+    got_map, got_score = fn()
+    with RecordConvs(record=False, plain=True):
+        want_map, want_score = fn()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got_score, want_score))
+    agree = float((got_map == want_map).mean())
+    print(f"{label} with K6 vs with K6's plain version: argmax agreement {agree}, scores "
+          f"bit-equal {same}")
+    if agree != 1.0 or not same:
+        raise AssertionError(f"{label} disagrees with its plain-K6 composition")
+
+
+def qkv_split_ab(one, state, gen) -> dict:
+    """One vit2p8 train step (``one``, an epoch of one step) profiled and
+    timed with the qkv gradient taken from K5/K4's buffer as it is
+    (``flash_attention_qkv``, the port's path) and with the three
+    ``qkv[:, :, i]`` selects of the parent's ``MHA.forward``, whose backward
+    runs a zeros, a copy and an add into the whole qkv gradient per select;
+    in turns (selects, buffer, buffer, selects), best step time of 3 each."""
+    from deephisto_tpu_torch.models import vit as vit_module
+    from deephisto_tpu_torch.ops import attention_plain, flash_attention
+
+    def selects(qkv, use_flash):
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        if use_flash:
+            return flash_attention(q, k, v, q.shape[-1] ** -0.5)
+        return attention_plain(q, k, v)
+
+    buffer = vit_module._attention
+    out = {"selects": {"step_ms": []}, "buffer": {"step_ms": []}}
+    try:
+        for variant in ("selects", "buffer", "buffer", "selects"):
+            vit_module._attention = selects if variant == "selects" else buffer
+            one(state, gen)  # warm
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one(state, gen)
+                torch.cuda.synchronize()
+                out[variant]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if "profile" not in out[variant]:
+                out[variant]["profile"] = profile_device(lambda: one(state, gen))
+    finally:
+        vit_module._attention = buffer
+    for v in out.values():
+        v["best_step_ms"] = min(v["step_ms"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -754,6 +1029,14 @@ def main() -> int:
     secs = _build.build()
     print(f"build: {', '.join(s + '.cu' for s in _build.SOURCES)} with nvcc for sm_90a "
           f"in {secs:.1f} s")
+    for name, log in _build.build_logs.items():  # ptxas -v: registers and spills a kernel
+        usage, kernel = [], "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][-60:]
+            elif "Used" in line or "spill" in line:
+                usage.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+        print(f"ptxas {name}.cu: " + " | ".join(usage))
 
     # 3. kernels vs plain at the main path's shapes
     slide = seeded_slide(device)
@@ -768,8 +1051,8 @@ def main() -> int:
     model = seeded_model(device, depth=18)
     n_patches = len(dense)
     center_head(model, model.fc, slide, dense[:: n_patches // 64][:64])
-    launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
-        slide, model, MAIN_SIDE, "ResNet-18 path")
+    launches, runs, warm_s, best_s, peak_gib, (argmax_map, _) = run_timed(
+        lambda: predict_full_fused(slide, model, N_CLASSES), "ResNet-18 path", MAIN_SIDE)
     for name in ("gather_normalize", "scatter_add_map"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -808,8 +1091,8 @@ def main() -> int:
     n_vit = len(vit_dense)
     batches = -(-n_vit // BS)
     center_head(vit, vit.head, vit_slide, vit_dense[:: n_vit // 64][:64])
-    launches, runs, warm_s, best_s, peak_gib, argmax_map = run_main_path(
-        vit_slide, vit, VIT_SIDE, "ViT-S/8 path")
+    launches, runs, warm_s, best_s, peak_gib, (argmax_map, _) = run_timed(
+        lambda: predict_full_fused(vit_slide, vit, N_CLASSES), "ViT-S/8 path", VIT_SIDE)
     for name in ("gather_normalize", "scatter_add_map", "flash_attention"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"the ViT path never launched {name}")
@@ -849,9 +1132,128 @@ def main() -> int:
     # 9. where the ViT path's time goes
     print(f"profile of one {VIT_SIDE}^2 ViT predict: "
           + json.dumps(profile_main_path(vit_slide, vit)))
-    del vit, slide, vit_slide
+    del vit
 
-    # 10. training main path: vit2p8 through make_fused_epoch over the sampler
+    # 10. the card's attention threshold: a 196-token ViT-S/16 predict with
+    # the plain attention (threshold 512, the TPU's) and with K3 (threshold
+    # 196), in turns
+    vit16 = seeded_model(device, arch="vit", depth=VIT_DEPTH)
+    center_head(vit16, vit16.head, vit_slide, vit_dense[:: n_vit // 64][:64])
+    flash_min = vit_module.FLASH_MIN_SEQ
+    by_threshold = {512: [], 196: []}
+    try:
+        for threshold in (512, 196, 196, 512):
+            vit_module.FLASH_MIN_SEQ = threshold
+            _build.reset_launches()
+            _, _, _, best_s, _, _ = run_timed(
+                lambda: predict_full_fused(vit_slide, vit16, N_CLASSES),
+                f"ViT-S/16 (196 tokens) predict, FLASH_MIN_SEQ {threshold}", VIT_SIDE, runs=2)
+            by_threshold[threshold].append(n_vit / best_s)
+    finally:
+        vit_module.FLASH_MIN_SEQ = flash_min
+    print(f"ViT-S/16 {VIT_SIDE}^2 predict patches/s by attention threshold (plain at 512, K3 at "
+          f"196; in turns 512, 196, 196, 512): {json.dumps(by_threshold)}; the port's card "
+          f"threshold FLASH_MIN_SEQ = {flash_min}")
+    del vit16, vit_slide
+
+    # 11. the int8 ResNet-18 (s2d stem): quantize, stage the fcn headline,
+    # record one batch's convs on each path and hold K6 against its plain
+    # version on them
+    from deephisto_tpu_torch.ops import gather_multi_u8
+    from deephisto_tpu_torch.predict import (
+        fcn_equivalent_patches,
+        predict_full_fcn,
+        stage_for_fcn,
+        tile_logits,
+    )
+
+    r18 = seeded_model(device, depth=18, stem="s2d")
+    qexact, qpack, quant_s = seeded_int8(device, r18, slide, dense)
+    center_head(r18, r18.fc, slide, dense[:: n_patches // 64][:64])
+    print(f"int8 ResNet-18 (s2d): quantize_resnet on {CALIB_N} images of {PS}^2 in {quant_s:.2f} s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = stage_for_fcn(slide, tile=FCN_TILE, halo=FCN_HALO, pack=8, pre_tile=True)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    slide0 = torch.zeros((BS,), dtype=torch.int32)
+    with RecordConvs() as exact_rec, torch.inference_mode():
+        qexact(gather_multi_u8(slide[None], slide0, dense[:BS], PS))
+    hh, ft = FCN_HALO // 32, FCN_TILE // 32
+    with RecordConvs() as fcn_rec, torch.inference_mode():
+        tile_logits(qpack, staged.tiles[:FCN_TB], hh, ft, qpack.fc_kernel, pre_packed="s2d8")
+    k6_entry, k6_sums = check_k6({"exact_int8_batch": exact_rec.calls,
+                                  f"fcn_tile_batch_{FCN_TB}x{FCN_TILE + 2 * FCN_HALO}": fcn_rec.calls})
+    del exact_rec, fcn_rec
+    k6_entry["launches"] = 0
+    k6_entry["launches_by_path"] = {}
+    kernels.append(k6_entry)
+
+    # 12. the exact int8 predict on the 16384^2 slide
+    launches, runs, warm_s, best_s, peak_gib, exact_map = run_timed(
+        lambda: predict_full_fused(slide, qexact, N_CLASSES),
+        f"exact int8 predict, {MAIN_SIDE}^2, ResNet-18 s2d int8, batch {BS}", MAIN_SIDE)
+    exact_map = exact_map[0]
+    for name in ("gather_multi_u8", "conv_int8", "scatter_add_map"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"the exact int8 path never launched {name}")
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+        k["launches_by_path"]["exact_int8_16384"] = launches.get(k["name"], 0) / runs
+    exact_int8 = {"patches_per_s": n_patches / best_s, "best_s": best_s, "warm_s": warm_s,
+                  "peak_gib": peak_gib, "k6_launches_per_predict": launches["conv_int8"] / runs}
+    print(f"exact int8 path: {n_patches} patches in {best_s:.4f} s = "
+          f"{n_patches / best_s:.1f} patches/s; K6 {launches['conv_int8'] // runs} launches a "
+          f"predict; classes present {np.bincount(exact_map.ravel(), minlength=N_CLASSES).tolist()}")
+    print(f"profile of one {MAIN_SIDE}^2 exact int8 predict: "
+          + json.dumps(profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))))
+    crop = slide[:INT8_CHECK_SIDE, :INT8_CHECK_SIDE].contiguous()
+    int8_vs_plain(lambda: predict_full_fused(crop, qexact, N_CLASSES),
+                  f"exact int8 predict on a {INT8_CHECK_SIDE}^2 crop")
+
+    # 13. the fcn serving mode on the 16384^2 slide: bench.py's headline
+    # (pack 8, pre-tiled, pack_l1), then its pack-4 int8 and bf16 rows
+    n_equiv = fcn_equivalent_patches(MAIN_SIDE, MAIN_SIDE)
+
+    def fcn_row(label, staged_slide, model, s_s):
+        launches, runs, warm_s, best_s, peak_gib, out = run_timed(
+            lambda: predict_full_fcn(staged_slide, model, N_CLASSES, tile=FCN_TILE,
+                                     halo=FCN_HALO, tile_batch=FCN_TB), label, MAIN_SIDE)
+        agree = float((out[0] == exact_map).mean())
+        row = {"equivalent_patches_per_s": n_equiv / best_s, "best_s": best_s, "warm_s": warm_s,
+               "stage_s": s_s, "peak_gib": peak_gib, "agreement_with_exact_int8": agree,
+               "launches_per_predict": {k: v / runs for k, v in launches.items() if v}}
+        print(f"{label}: {n_equiv} equivalent patches in {best_s:.4f} s = {n_equiv / best_s:.1f} "
+              f"patches/s; staging {s_s:.3f} s; argmax agreement with the exact int8 map {agree}")
+        return launches, runs, row
+
+    launches, runs, headline = fcn_row("fcn_int8_pack8_staged (headline)", staged, qpack, stage_s)
+    if launches.get("conv_int8", 0) == 0:
+        raise AssertionError("the fcn path never launched conv_int8")
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+        k["launches_by_path"]["fcn_int8_16384"] = launches.get(k["name"], 0) / runs
+    print(f"profile of one {MAIN_SIDE}^2 fcn predict (headline): " + json.dumps(profile_device(
+        lambda: predict_full_fcn(staged, qpack, N_CLASSES, tile=FCN_TILE, halo=FCN_HALO,
+                                 tile_batch=FCN_TB))))
+    del staged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged4 = stage_for_fcn(slide, tile=FCN_TILE, halo=FCN_HALO)
+    torch.cuda.synchronize()
+    stage4_s = time.perf_counter() - t0
+    rows = {"fcn_int8_pack8_staged": headline}
+    rows["fcn_int8_pack4_staged"] = fcn_row("fcn_int8_pack4_staged", staged4, qpack, stage4_s)[2]
+    rows["fcn_bf16_staged"] = fcn_row("fcn_bf16_staged", staged4, r18, stage4_s)[2]
+    del staged4
+    crop_staged = stage_for_fcn(crop, tile=FCN_TILE, halo=FCN_HALO, pack=8, pre_tile=True)
+    int8_vs_plain(lambda: predict_full_fcn(crop_staged, qpack, N_CLASSES, tile=FCN_TILE,
+                                           halo=FCN_HALO, tile_batch=FCN_TB),
+                  f"fcn headline predict on a {INT8_CHECK_SIDE}^2 crop")
+    print("int8 paths: " + json.dumps({"exact_int8": exact_int8, "fcn": rows}))
+    del qexact, qpack, r18, crop, crop_staged, slide
+
+    # 14. training main path: vit2p8 through make_fused_epoch over the sampler
     from deephisto_tpu_torch.models.patch_cls_simple import (
         get_model,
         init_model,
@@ -882,10 +1284,10 @@ def main() -> int:
         k["launches"] += int(round(per_step.get(k["name"], 0) * TRAIN_EPOCHS * TRAIN_STEPS))
         k["launches_by_path"]["vit2p8_train_step"] = per_step.get(k["name"], 0)
 
-    # 11. the vit2p8 step vs the plain attention; the one-batch overfit
+    # 15. the vit2p8 step vs the plain attention; the one-batch overfit
     vit_step_vs_plain(state.model, sampler, device)
 
-    # 12. ResNet-18 training through the same epoch
+    # 16. ResNet-18 training through the same epoch
     r18 = init_model(get_model(N_CLASSES, depth=18, stem="s2d"), seed=SEED).to(device)
     stats0 = r18.bn1.running_mean.clone(), r18.bn1.running_var.clone()
     _, r18_step, _, _, _ = run_training("ResNet-18 (s2d)", r18, sampler, 1e-3, 0.0, 0, 0.0)
@@ -896,11 +1298,12 @@ def main() -> int:
         k["launches_by_path"]["resnet18_train_step"] = r18_step.get(k["name"], 0)
     del r18
 
-    # 13. where a vit2p8 train step's time goes
+    # 17. where a vit2p8 train step's time goes, with the qkv gradient as
+    # K5/K4 write it (flash_attention_qkv) and, in turns, as the parent took
+    # it (three selects of qkv, whose backward fills and adds copies)
     one = make_fused_epoch(state.model, sampler, BS, 1, crop_pad=TRAIN_CROP, label_smoothing=0.1)
     gen = torch.Generator().manual_seed(SEED + 9)
-    print("profile of one vit2p8 train step: "
-          + json.dumps(profile_device(lambda: one(state, gen))))
+    print(f"qkv split A/B of one vit2p8 train step: {json.dumps(qkv_split_ab(one, state, gen))}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

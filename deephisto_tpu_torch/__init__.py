@@ -7,9 +7,14 @@ coords, NHWC activations and (H/d, W/d, C) score maps.
 
 Layers, from the entry point down:
 
-    predict/   exact dense full-WSI prediction (predict_full_fused)
-    models/    ResNet family, flax → torch weight bridge
-    ops/       patch gather (kernel K1) and stitch (kernel K2), each with its
+    predict/   exact dense full-WSI prediction (predict_full_fused) and the
+               fcn serving mode (predict_full_fcn)
+    models/    ResNet and ViT families, int8 PTQ of the ResNet, flax → torch
+               weight bridge
+    train/, samplers/, slide/, anno/, geometry/, data/
+               training over the annotated region sampler
+    ops/       patch gather (kernel K1), stitch (K2), flash attention (K3)
+               and its backward (K4, K5), int8 conv (K6), each with its
                plain PyTorch version, which tensors on the CPU take
     csrc/      the kernels' CUDA sources, built at first use by _build.py
 

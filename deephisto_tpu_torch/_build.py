@@ -29,13 +29,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "deephisto_tpu_torch"
-SOURCES = ("gather", "stitch", "attention", "attention_bwd")
+SOURCES = ("gather", "stitch", "attention", "attention_bwd", "conv_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 launches: dict[str, int] = {}
+# nvcc's output of each library built in this process (``-Xptxas -v``: the
+# registers, shared memory and spills of every kernel)
+build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -92,6 +95,7 @@ def build(names=SOURCES) -> float:
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)

@@ -1,5 +1,7 @@
 """Weight bridge: the JAX package's flax ResNet and ViT variables → state
-dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`.
+dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`, and its
+int8 ``qvariables`` → the quantized parameters of the port's
+:class:`~.quantize.QuantizedResNet` (:func:`flax_qvariables_to_torch`).
 
 Each pair of models shares module names (ResNet: ``conv1``, ``bn1``,
 ``layer{i}_{j}/conv{k}``, ``bn{k}``, ``downsample_conv``, ``downsample_bn``,
@@ -64,3 +66,28 @@ def flax_vit_to_torch(variables_np) -> dict[str, torch.Tensor]:
     float32 tensors keyed as the port's ViT state dict. The names and rules
     are the ResNet's, plus ``pos_embed``."""
     return flax_resnet_to_torch(variables_np)
+
+
+def flax_qvariables_to_torch(qvariables_np) -> dict:
+    """``qvariables_np``: the ``{"params": ...}`` tree that the JAX
+    package's ``quantize_resnet`` returns, with numpy leaves. Returns the
+    ``qparams`` dict that :class:`~.quantize.QuantizedResNet` takes: per
+    conv ``kernel_q`` HWIO → (Cout, KH, KW, Cin) int8, ``dequant``,
+    ``bias`` and ``in_inv_scale`` f32 as they are, and ``fc``'s (in, out)
+    kernel and bias."""
+    out = {}
+    for name, leaves in qvariables_np["params"].items():
+        leaves = {k: np.asarray(v) for k, v in leaves.items()}
+        if name == "fc":
+            out["fc"] = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in leaves.items()}
+            continue
+        kq = leaves["kernel_q"]
+        if kq.dtype != np.int8:
+            raise ValueError(f"{name}: kernel_q must be int8, got {kq.dtype}")
+        out[name] = {
+            "kernel_q": torch.from_numpy(np.ascontiguousarray(kq.transpose(3, 0, 1, 2))),
+            "dequant": torch.from_numpy(np.array(leaves["dequant"], np.float32)),
+            "bias": torch.from_numpy(np.array(leaves["bias"], np.float32)),
+            "in_inv_scale": torch.tensor(float(leaves["in_inv_scale"]), dtype=torch.float32),
+        }
+    return out

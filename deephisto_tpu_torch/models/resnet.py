@@ -201,13 +201,18 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 m.to(memory_format=torch.channels_last)
 
-    def forward(self, x, features: bool = False, up_to: str | None = None):
+    def forward(self, x, features: bool = False, up_to: str | None = None,
+                pre_packed: bool = False):
         """x: (B, H, W, C). Returns (B, num_classes) float32 logits, or with
         ``features=True`` the pre-GAP feature map (B, H/32, W/32, C'), or with
         ``up_to`` in {"stem", "layer1".."layer4"} the NHWC tensor after that
-        boundary."""
+        boundary. ``pre_packed=True`` (s2d stem only): ``x`` is already the
+        4×4 space-to-depth form (B, H/4, W/4, 48), as the predicts gather it
+        from a packed slide."""
+        if pre_packed and self.stem != "s2d":
+            raise ValueError("pre_packed input requires the s2d stem")
         x = x.to(self.dtype)
-        if self.stem == "s2d":
+        if self.stem == "s2d" and not pre_packed:
             b, h, w, c = x.shape
             x = x.reshape(b, h // 4, 4, w // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
             x = x.reshape(b, h // 4, w // 4, 16 * c)

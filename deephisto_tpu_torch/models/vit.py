@@ -7,10 +7,11 @@ Module and parameter names follow the flax model (``embed``, ``pos_embed``,
 ``ln``, ``head``), so :func:`..convert.flax_vit_to_torch` maps one onto the
 other by name. The call takes NHWC input, as the JAX model does.
 
-Attention dispatches as the JAX model does: from ``FLASH_MIN_SEQ`` tokens up
-on the card it runs kernel K3 (``ops.attention.flash_attention``), where the
-JAX model runs the Pallas flash kernel on the TPU; everywhere else the port
-of the jnp branch (``ops.attention.attention_plain``).
+Attention dispatches as the JAX model does, at the card's own threshold:
+from ``FLASH_MIN_SEQ`` tokens up on the card it runs kernel K3
+(``ops.attention.flash_attention_qkv`` on the qkv projection), where the JAX
+model runs the Pallas flash kernel on the TPU from 512; everywhere else the
+port of the jnp branch (``ops.attention.attention_plain``).
 
 Numerics follow flax: LayerNorm and GroupNorm use eps 1e-6 and reduce in
 float32 on model-dtype activations; the stem's BatchNorm uses eps 1e-5;
@@ -34,19 +35,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention_plain, flash_attention
+from ..ops.attention import attention_plain, flash_attention_qkv
 from .resnet import BatchNorm, SameConv2d, cast_param
 
-# From this many tokens the JAX model takes the Pallas flash kernel on the
-# TPU (deephisto_tpu/models/vit.py:56); the port takes K3 on the card.
-FLASH_MIN_SEQ = 512
+# From this many tokens the port takes K3 on the card. The JAX model's
+# threshold, 512, comes from a TPU sweep (deephisto_tpu/models/vit.py:56);
+# on an H100 80GB HBM3 at 700 W a 196-token ViT-S/16 predict of an 8192²
+# slide runs 33,200 patches/s with K3 and 18,300 with the plain attention
+# (chip_smoke.py phase 10), so the card takes K3 from 196 tokens up. Fewer
+# tokens are not measured and keep the plain attention. The CPU always runs
+# the plain attention.
+FLASH_MIN_SEQ = 196
 
 
-def _attention(q, k, v, use_flash: bool) -> torch.Tensor:
-    """(B, H, N, Dh) attention: kernel K3 when ``use_flash``, else the jnp
-    branch's port."""
+def _attention(qkv, use_flash: bool) -> torch.Tensor:
+    """(B, H, N, Dh) attention over a (B, N, 3, H, Dh) qkv projection:
+    kernel K3 when ``use_flash`` (its backward hands the qkv gradient over
+    as K5 and K4 write it), else the jnp branch's port on
+    ``qkv.unbind(2)``, whose backward is one ``stack``."""
     if use_flash:
-        return flash_attention(q, k, v, q.shape[-1] ** -0.5)
+        return flash_attention_qkv(qkv, qkv.shape[-1] ** -0.5)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
     return attention_plain(q, k, v)
 
 
@@ -105,8 +114,7 @@ class MHA(nn.Module):
         b, n, _ = x.shape
         # flax's column order: (3, heads, dh) within each token's 3·dim row
         qkv = self.qkv(x).reshape(b, n, 3, self.heads, self.dim // self.heads)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = _attention(q, k, v, use_flash=q.is_cuda and n >= FLASH_MIN_SEQ)
+        out = _attention(qkv, use_flash=qkv.is_cuda and n >= FLASH_MIN_SEQ)
         return self.proj(out.transpose(1, 2).reshape(b, n, self.dim))
 
 

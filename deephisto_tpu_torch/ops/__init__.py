@@ -1,13 +1,17 @@
 """Device ops: patch gather (kernel K1, with its multi-slide uint8 mode),
-stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5)."""
+stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
+and the int8 convolution with its epilogue (kernel K6)."""
 
 from .attention import (
     attention_plain,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
+    flash_attention_qkv,
     flash_attention_ref,
 )
+# the module's entry points; ``ops.conv_int8`` stays the module
+from .conv_int8 import conv_f32, conv_int8_ref, conv_to_int8
 from .gather import (
     gather_multi_u8,
     gather_normalize,
@@ -26,10 +30,14 @@ from .stitch import (
 
 __all__ = [
     "attention_plain",
+    "conv_f32",
+    "conv_int8_ref",
+    "conv_to_int8",
     "coverage_footprint",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_ref",
+    "flash_attention_qkv",
     "flash_attention_ref",
     "gather_multi_u8",
     "gather_normalize",

@@ -227,6 +227,19 @@ def _bwd_operands(q, k, v, o, lse, do):
     return _kernel_layout(do), _kernel_layout(o), lse.contiguous(), di
 
 
+def _bwd_qkv(q, k, v, o, lse, do, scale: float) -> torch.Tensor:
+    """K5 then K4 on the card, writing dQ, dK and dV into one
+    (B, N, 3, H, Dh) buffer, the layout of the ViT's qkv projection, which
+    is returned."""
+    do, o, lse, di = _bwd_operands(q, k, v, o, lse, do)
+    b, h, n, dh = q.shape
+    grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=q.device)
+    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
+    _bwd_launch(KERNEL_DQ, q, k, v, do, o, lse, di, (dq,), scale)
+    _bwd_launch(KERNEL_DKV, q, k, v, do, o, lse, di, (dk, dv), scale)
+    return grads
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     """K4 and K5: (dq, dk, dv) of ``flash_attention`` at output ``o`` with
     the lse residual of K3 and the output gradient ``do``. Tensors on the CPU
@@ -235,13 +248,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     the layout of the ViT's qkv projection; the gradients are views of it."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
-    do, o, lse, di = _bwd_operands(q, k, v, o, lse, do)
-    b, h, n, dh = q.shape
-    grads = torch.empty((b, n, 3, h, dh), dtype=q.dtype, device=q.device)
-    dq, dk, dv = (grads[:, :, i].transpose(1, 2) for i in range(3))
-    _bwd_launch(KERNEL_DQ, q, k, v, do, o, lse, di, (dq,), scale)
-    _bwd_launch(KERNEL_DKV, q, k, v, do, o, lse, di, (dk, dv), scale)
-    return dq, dk, dv
+    grads = _bwd_qkv(q, k, v, o, lse, do, scale)
+    return tuple(grads[:, :, i].transpose(1, 2) for i in range(3))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -260,6 +268,52 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale)
         return dq, dk, dv, None
+
+
+def _split_qkv(qkv):
+    """The (B, H, N, Dh) q, k and v views of a (B, N, 3, H, Dh) tensor."""
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    """K3 on the q, k and v views of one (B, N, 3, H, Dh) qkv tensor; the
+    backward returns the buffer K5 and K4 fill as the gradient of qkv, as
+    it is: no selects, zeros or copies (the plain versions, stacked, for CPU
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        q, k, v = _split_qkv(qkv)
+        out, lse = _forward(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out, lse = ctx.saved_tensors
+        q, k, v = _split_qkv(qkv)
+        if qkv.device.type == "cpu":
+            grads = flash_attention_bwd_ref(q, k, v, out, lse, do, ctx.scale)
+            return torch.stack([g.transpose(1, 2) for g in grads], dim=2), None
+        return _bwd_qkv(q, k, v, out, lse, do, ctx.scale), None
+
+
+def flash_attention_qkv(qkv, scale: float) -> torch.Tensor:
+    """K3 over the heads of one (B, N, 3, H, Dh) qkv projection (flax's
+    column order, ``qkv[:, :, 0]`` the queries): the value of
+    :func:`flash_attention` on its three (B, H, N, Dh) views. Under grad
+    the gradient of ``qkv`` is the one (B, N, 3, H, Dh) buffer that K5 and
+    K4 write, handed to autograd as it is."""
+    if qkv.ndim != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (B, N, 3, H, Dh), got {tuple(qkv.shape)}")
+    q, k, v = _split_qkv(qkv)
+    _check(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"flash_attention takes a scale > 0, got {scale}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FlashAttentionQKV.apply(qkv, scale)
+    return _forward(q, k, v, scale, with_lse=False)[0]
 
 
 def flash_attention(q, k, v, scale: float) -> torch.Tensor:

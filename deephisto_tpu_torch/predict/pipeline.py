@@ -1,12 +1,17 @@
 """Exact dense full-WSI prediction, a port of
 ``deephisto_tpu/predict/pipeline.py`` (``dense_coords``, ``model_input``,
-``predict_full_fused``).
+``PackedSlide``, ``stage_packed_slide``, ``predict_full_fused``).
 
 The JAX package runs the whole predict as one ``lax.scan``; here a Python
-loop over coordinate batches launches, per batch, K1 (gather + /255 to
-bf16), the model, an optional softmax and K2 (stitch), all queued on the
-current stream without waiting for the card. The host reads back only the
-final argmax map.
+loop over coordinate batches launches, per batch, K1, the model, an optional
+softmax and K2 (stitch), all queued on the current stream without waiting
+for the card. The host reads back only the final argmax map.
+
+K1 runs in the mode the model takes: gather + /255 to bf16 for a float
+model, the uint8 gather (its multi-slide mode on a one-slide view of the
+slide) for a model that declares ``wants_uint8`` (the int8 ResNet). A
+:class:`PackedSlide` is gathered in its 4×4 space-to-depth units (coords and
+patch size divided by 4, 48 channels), which K1 takes in both modes.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.gather import gather_normalize
+from ..ops.gather import gather_multi_u8, gather_normalize
 from ..ops.stitch import scatter_add_map_exact
 
 
@@ -28,6 +33,66 @@ def model_input(model, patches_u8: torch.Tensor) -> torch.Tensor:
     return patches_u8.to(torch.bfloat16) / torch.tensor(
         255.0, dtype=torch.bfloat16, device=patches_u8.device
     )
+
+
+class PackedSlide:
+    """A slide staged for repeated s2d-stem dense prediction: rounded up to a
+    multiple of 4 (edge pad) and 4×4 space-to-depth packed, uint8 on the
+    device (``packed``, (H/4, W/4, 48)); ``h``, ``w`` the slide's extent and
+    ``raw`` the unpacked slide if kept. Build it with
+    :func:`stage_packed_slide`; :func:`predict_full_fused` takes it in place
+    of the raw image, with bit-identical results (packing commutes with
+    slicing). A grid that is not 4-aligned falls back to ``raw``."""
+
+    __slots__ = ("packed", "h", "w", "raw")
+
+    def __init__(self, packed, h, w, raw=None):
+        self.packed = packed
+        self.h, self.w = h, w
+        self.raw = raw
+
+
+def stage_packed_slide(image, keep_raw: bool = True, device=None) -> PackedSlide:
+    """Stage a slide for s2d-stem dense prediction (:class:`PackedSlide`).
+    A numpy slide is padded and packed on the host, then uploaded; a tensor
+    is packed where it lies (moved to ``device`` first). ``keep_raw=False``
+    drops the raw slide, and a misaligned grid then raises."""
+    from .fcn import _host_pack_s2d, s2d_pack_image
+
+    device = resolve_device(device)
+    h, w = int(image.shape[0]), int(image.shape[1])
+    if isinstance(image, np.ndarray):
+        padded = np.pad(image, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge")
+        packed = torch.from_numpy(_host_pack_s2d(padded)).to(device)
+        raw = torch.from_numpy(image).to(device) if keep_raw else None
+    else:
+        raw = image.to(device)
+        packed = s2d_pack_image(edge_pad(raw, (0, -h % 4), (0, -w % 4)))
+        raw = raw if keep_raw else None
+    return PackedSlide(packed, h, w, raw=raw)
+
+
+def edge_pad(image: torch.Tensor, pad_y, pad_x) -> torch.Tensor:
+    """(H, W, C) → edge-replicated padding by (top, bottom) rows and (left,
+    right) columns, as ``np.pad(mode="edge")``: a gather of clamped rows and
+    columns, for any dtype."""
+    h, w = image.shape[:2]
+    if not any(pad_y) and not any(pad_x):
+        return image
+    dev = image.device
+    rows = torch.arange(-pad_y[0], h + pad_y[1], device=dev).clamp(0, h - 1)
+    cols = torch.arange(-pad_x[0], w + pad_x[1], device=dev).clamp(0, w - 1)
+    return image.index_select(0, rows).index_select(1, cols)
+
+
+def model_device(model) -> torch.device:
+    """The device of a model's first parameter, or of its first buffer (the
+    int8 ResNet holds buffers only)."""
+    for t in model.parameters():
+        return t.device
+    for t in model.buffers():
+        return t.device
+    raise ValueError("the model holds no tensor")
 
 
 def dense_coords(h: int, w: int, patch_size: int, stride: int) -> np.ndarray:
@@ -60,9 +125,9 @@ def predict_full_fused(
     """Dense full-WSI prediction; returns (argmax_map, score_map).
 
     image: (H, W, 3) uint8, numpy or a tensor (kept where it is if already on
-    ``device``). model: a float model (ResNet or ViT) on ``device``; it is
-    put in eval mode. A model that declares ``wants_uint8`` is refused: K1
-    writes bf16 u8/255 only.
+    ``device``), or a :class:`PackedSlide` for a model with the s2d stem.
+    model: a float model (ResNet or ViT) or the int8 ResNet (``wants_uint8``)
+    on ``device``; it is put in eval mode.
     device: None runs on the current CUDA device and raises without one;
     ``"cpu"`` runs the plain versions of the kernels.
 
@@ -74,27 +139,39 @@ def predict_full_fused(
     """
     if n_classes > 255:
         raise ValueError("class maps are uint8: n_classes must be <= 255")
-    if getattr(model, "wants_uint8", False):
-        raise ValueError(
-            "the model wants raw uint8 patches (wants_uint8), but this predict "
-            "feeds bf16 u8/255: K1 has no uint8 output yet (ROADMAP, queue B, B1)"
-        )
     device = resolve_device(device)
-    image = torch.as_tensor(image).to(device)
-    if image.dtype != torch.uint8 or image.ndim != 3:
+    packed = isinstance(image, PackedSlide)
+    if packed:
+        if getattr(model, "stem", None) != "s2d":
+            raise ValueError(
+                "PackedSlide is the s2d-packed representation; the model "
+                f"has stem={getattr(model, 'stem', None)!r}"
+            )
+        h, w = image.h, image.w
+    else:
+        image = torch.as_tensor(image).to(device)
+        if image.dtype != torch.uint8 or image.ndim != 3:
+            raise ValueError(
+                f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"
+            )
+        h, w = int(image.shape[0]), int(image.shape[1])
+    if model_device(model) != device:
         raise ValueError(
-            f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"
-        )
-    image = image.contiguous()
-    p = next(model.parameters())
-    if p.device != device:
-        raise ValueError(
-            f"model is on {p.device}, the prediction on {device}; move it with "
+            f"model is on {model_device(model)}, the prediction on {device}; move it with "
             "model.to(device)"
         )
-    h, w = int(image.shape[0]), int(image.shape[1])
     ps, bs, d = patch_size, batch_size, downscale
     coords = dense_coords(h, w, ps, stride)
+    if packed and (ps % 4 or (coords % 4).any()):
+        if image.raw is None:
+            raise ValueError(
+                "PackedSlide prediction needs 4-aligned patch_size and coords "
+                f"(patch_size={ps}, stride={stride}); stage with keep_raw=True or pass "
+                "the raw image for arbitrary grids"
+            )
+        image, packed = image.raw, False
+    slide = (image.packed if packed else image).to(device).contiguous()
+    unit = 4 if packed else 1
     n = len(coords)
     n_b = -(-n // bs)
     if n_b * bs > n:
@@ -103,12 +180,20 @@ def predict_full_fused(
     if device.type == "cuda":
         coords = coords.pin_memory()  # lets every batch's upload run ahead
 
+    wants_uint8 = getattr(model, "wants_uint8", False)
+    one_slide = torch.zeros((bs,), dtype=torch.int32, device=device)
+    kwargs = {"pre_packed": True} if packed else {}
     model.eval()
     score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for b in range(n_b):
             cb = coords[b * bs : (b + 1) * bs]
-            logits = model(gather_normalize(image, cb, ps, torch.bfloat16))
+            cg = cb // unit if packed else cb
+            if wants_uint8:  # K1's uint8 mode on a one-slide view of the slide
+                x = gather_multi_u8(slide[None], one_slide, cg, ps // unit)
+            else:
+                x = gather_normalize(slide, cg, ps // unit, torch.bfloat16)
+            logits = model(x, **kwargs)
             if softmax:
                 logits = torch.softmax(logits.float(), dim=-1)
             real = min(bs, n - b * bs)

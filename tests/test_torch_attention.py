@@ -41,6 +41,7 @@ from deephisto_tpu_torch.ops import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
+    flash_attention_qkv,
     flash_attention_ref,
 )
 
@@ -102,9 +103,28 @@ def test_flash_ref_is_softmax_attention(dh):
 def test_flash_attention_on_the_cpu_is_its_plain_version():
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv((1, 2, 40, 32)))
     assert torch.equal(flash_attention(q, k, v, 0.2), flash_attention_ref(q, k, v, 0.2))
-    assert torch.equal(tvit._attention(q, k, v, use_flash=True),
+    qkv = torch.stack([q, k, v], dim=1).permute(0, 3, 1, 2, 4)  # (B, N, 3, H, Dh)
+    assert torch.equal(tvit._attention(qkv, use_flash=True),
                        flash_attention_ref(q, k, v, 32**-0.5))
-    assert torch.equal(tvit._attention(q, k, v, use_flash=False), attention_plain(q, k, v))
+    assert torch.equal(tvit._attention(qkv, use_flash=False), attention_plain(q, k, v))
+
+
+def test_flash_attention_qkv_gradient_is_the_three_gradients_stacked():
+    """On the CPU, ``flash_attention_qkv``'s value is ``flash_attention`` on
+    the three views of qkv, and its gradient of qkv holds, bit for bit, the
+    gradients that ``flash_attention`` gives q, k and v taken apart."""
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 40, 3, 2, 32)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 2, 40, 32)).astype(np.float32))
+    a = qkv.clone().requires_grad_(True)
+    out = flash_attention_qkv(a, 0.2)
+    (out * w).sum().backward()
+    q, k, v = (qkv[:, :, i].transpose(1, 2).clone().requires_grad_(True) for i in range(3))
+    want = flash_attention(q, k, v, 0.2)
+    (want * w).sum().backward()
+    assert torch.equal(out.detach(), want.detach())
+    for i, t in enumerate((q, k, v)):
+        assert torch.equal(a.grad[:, :, i].transpose(1, 2), t.grad), i
 
 
 @pytest.mark.parametrize(

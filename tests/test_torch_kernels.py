@@ -26,6 +26,8 @@ from deephisto_tpu_torch.ops import (
     scatter_add_map_ref,
 )
 from deephisto_tpu_torch.ops import attention as att
+from deephisto_tpu_torch.ops import conv_int8 as k6
+from deephisto_tpu_torch.ops import flash_attention_qkv
 from deephisto_tpu_torch.ops.attention import _forward as flash_forward
 
 
@@ -410,3 +412,121 @@ def test_gather_multi_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert _build.launches["gather_multi_u8"] == 1
         assert torch.equal(got.cpu(), gather_multi_u8(bank.cpu(), idx, coords, ps))
+
+
+# K6 cases: (x shape NHWC, Cout, kernel, stride, pads); SAME pads of flax,
+# the imagenet stem's (3, 3), stride-2 (0, 1) on even extents, odd channel
+# counts (the byte-wise gather) and a K of 4608 taps
+K6_CASES = [
+    ((2, 17, 19, 16), 24, 3, 1, ((1, 1), (1, 1))),
+    ((2, 18, 20, 32), 40, 3, 2, ((0, 1), (0, 1))),
+    ((2, 17, 19, 32), 8, 3, 2, ((1, 1), (1, 1))),
+    ((2, 40, 36, 3), 64, 7, 2, ((3, 3), (3, 3))),
+    ((2, 16, 16, 48), 64, 2, 1, ((0, 1), (0, 1))),
+    ((3, 11, 13, 20), 5, 3, 1, ((1, 1), (1, 1))),
+    ((2, 14, 14, 64), 128, 1, 2, ((0, 0), (0, 0))),
+    ((2, 7, 7, 512), 512, 3, 1, ((1, 1), (1, 1))),
+    ((1, 9, 9, 7), 3, 2, 2, ((0, 1), (0, 1))),
+]
+
+
+def _k6_inputs(shape, cout, k, seed, full=False):
+    """int8 x and kernel (full: every value ±127, the largest sums), and
+    per-channel a, b of both signs."""
+    rng = np.random.default_rng(seed)
+    cin = shape[3]
+    if full:
+        x = rng.choice(np.array([-127, 127], np.int8), size=shape)
+        w = rng.choice(np.array([-127, 127], np.int8), size=(cout, k, k, cin))
+    else:
+        x = rng.integers(-127, 128, shape, dtype=np.int8)
+        w = rng.integers(-127, 128, (cout, k, k, cin), dtype=np.int8)
+    a = (rng.uniform(0.5, 2.0, cout) * 10.0 ** rng.uniform(-6, -3, cout)).astype(np.float32)
+    b = rng.normal(0, 2.0, cout).astype(np.float32)
+    return [torch.from_numpy(v) for v in (x, w, a, b)]
+
+
+def _np_conv_s32(x, w, stride, pads):
+    """Direct numpy int64 convolution, NHWC x and (Cout, KH, KW, Cin) w."""
+    (pt, pb), (pl, pr) = pads
+    xp = np.pad(x.astype(np.int64), ((0, 0), (pt, pb), (pl, pr), (0, 0)))
+    cout, kh, kw, _ = w.shape
+    oh = (xp.shape[1] - kh) // stride + 1
+    ow = (xp.shape[2] - kw) // stride + 1
+    out = np.zeros((x.shape[0], oh, ow, cout), np.int64)
+    for r in range(kh):
+        for c in range(kw):
+            patch = xp[:, r:r + stride * (oh - 1) + 1:stride, c:c + stride * (ow - 1) + 1:stride]
+            out += patch @ w[:, r, c, :].astype(np.int64).T
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(K6_CASES)))
+def test_conv_int8_ref_is_the_integer_conv_and_the_epilogue(case):
+    """K6's plain version: its s32 sum is the numpy int64 convolution, and
+    its epilogue is numpy's f32 product, then f32 sum (no fused multiply-add),
+    relu, round half to even and clip, step by step."""
+    shape, cout, k, stride, pads = K6_CASES[case]
+    x, w, a, b = _k6_inputs(shape, cout, k, seed=case, full=case == 7)
+    want = _np_conv_s32(x.numpy(), w.numpy(), stride, pads)
+    assert np.abs(want).max() < 2**53
+    got = k6.conv_s32_ref(x, w, stride, pads)
+    np.testing.assert_array_equal(got.numpy(), want)
+    yf = want.astype(np.float32)
+    f32 = np.multiply(yf, a.numpy(), dtype=np.float32) + b.numpy()
+    np.testing.assert_array_equal(k6.conv_f32(x, w, stride, pads, a, b).numpy(), f32)
+    i8 = np.clip(np.rint(np.maximum(f32, 0)), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(k6.conv_to_int8(x, w, stride, pads, a, b).numpy(), i8)
+
+
+def test_conv_int8_refuses_what_it_does_not_take():
+    x, w, a, b = _k6_inputs((1, 8, 8, 16), 8, 3, seed=0)
+    pads = ((1, 1), (1, 1))
+    with pytest.raises(ValueError, match="int8"):
+        k6.conv_f32(x.float(), w, 1, pads, a, b)
+    with pytest.raises(ValueError, match="Cin=16"):
+        k6.conv_f32(x, w[..., :8], 1, pads, a, b)
+    with pytest.raises(ValueError, match="float32"):
+        k6.conv_f32(x, w, 1, pads, a.double(), b)
+    with pytest.raises(ValueError, match="does not fit"):
+        k6.conv_f32(x[:, :2, :2], w, 1, ((0, 0), (0, 0)), a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(K6_CASES)))
+def test_conv_int8_kernel_matches_plain_on_card(case):
+    """K6 on the card is its plain version bit for bit, in both modes, at
+    odd channel counts, stride-2 edges and the largest sums; two runs are
+    identical."""
+    _need_card()
+    shape, cout, k, stride, pads = K6_CASES[case]
+    x, w, a, b = _k6_inputs(shape, cout, k, seed=case, full=case == 7)
+    xc, wc, ac, bc = (t.cuda() for t in (x, w, a, b))
+    for fn in (k6.conv_f32, k6.conv_to_int8):
+        _build.reset_launches()
+        got = fn(xc, wc, stride, pads, ac, bc)
+        again = fn(xc, wc, stride, pads, ac, bc)
+        torch.cuda.synchronize()
+        assert _build.launches[k6.KERNEL] == 2
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), fn(x, w, stride, pads, a, b)), (case, fn.__name__)
+
+
+@pytest.mark.gpu
+def test_flash_attention_qkv_gradient_is_the_kernels_buffer_on_card():
+    """Through ``flash_attention_qkv`` the gradient of qkv equals, bit for
+    bit, the gradients that ``flash_attention`` gives q, k and v taken apart,
+    and it is K5/K4's buffer itself: contiguous, not a sum of copies."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, n, h, dh = 2, 600, 6, 64
+    qkv = torch.randn((b, n, 3, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn((b, h, n, dh), device="cuda", generator=gen)
+    a = qkv.clone().requires_grad_(True)
+    (flash_attention_qkv(a, 0.125).float() * w).sum().backward()
+    parts = [qkv[:, :, i].transpose(1, 2).clone().requires_grad_(True) for i in range(3)]
+    (flash_attention(*parts, 0.125).float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert a.grad.is_contiguous()
+    for i, t in enumerate(parts):
+        assert torch.equal(a.grad[:, :, i].transpose(1, 2), t.grad), i

@@ -28,12 +28,18 @@ TRAINING_MODULES = {
 }
 
 
+# the int8 slice's modules: PTQ, kernel K6's wrapper and the fcn predict
+INT8_MODULES = {
+    f"deephisto_tpu_torch.{m}" for m in ("models.quantize", "ops.conv_int8", "predict.fcn")
+}
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import deephisto_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({sorted(TRAINING_MODULES)}) - set(names)\n"
+        f"missing = set({sorted(TRAINING_MODULES | INT8_MODULES)}) - set(names)\n"
         "assert len(names) >= 36 and not missing, (names, missing)\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -85,7 +91,7 @@ def test_a_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_library_names_follow_their_sources():
-    assert "attention_bwd" in _build.SOURCES
+    assert "attention_bwd" in _build.SOURCES and "conv_int8" in _build.SOURCES
     names = {_build.library_path(n).name for n in _build.SOURCES}
     assert len(names) == len(_build.SOURCES)
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)

@@ -94,12 +94,18 @@ def test_predict_full_fused_with_a_patch8_vit_matches_jax(synthetic_slide, stric
 
 
 def test_predict_full_fused_refuses_uint8_models():
-    """A model that wants raw uint8 patches (as the JAX ``FoldedStemViT``)
-    must not be fed bf16 u8/255: the port's K1 writes no uint8 yet."""
+    """The refusal of ``wants_uint8`` models is lifted: such a model (the
+    int8 ResNet) now gets the raw uint8 patches, through K1's uint8 gather,
+    as the JAX ``model_input`` hands them over; a float model still gets
+    bf16 u8/255."""
     _, _, tm = flax_and_torch_resnet(18, size=64)
+    seen = []
+    tm.register_forward_pre_hook(lambda m, args: seen.append(args[0].dtype))
+    img = np.random.default_rng(1).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    predict_full_fused(img, tm, 5, patch_size=64, device="cpu")
     tm.wants_uint8 = True
-    with pytest.raises(ValueError, match="wants_uint8"):
-        predict_full_fused(np.zeros((64, 64, 3), np.uint8), tm, 5, patch_size=64, device="cpu")
+    predict_full_fused(img, tm, 5, patch_size=64, device="cpu")
+    assert seen == [torch.bfloat16, torch.uint8]
 
 
 @pytest.mark.parametrize("h,w,ps,stride", [(448, 560, 224, 112), (300, 301, 64, 50), (64, 64, 64, 7)])

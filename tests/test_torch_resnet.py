@@ -207,13 +207,11 @@ def test_get_model_and_seeded_init():
 
 def test_vit_is_not_ported_yet():
     """``arch="vit"`` builds the port's ViT now; what of the ViT family is
-    not ported yet is its uint8 serving rewrite (the JAX ``FoldedStemViT``,
-    ``wants_uint8``), which the predict refuses."""
-    from deephisto_tpu_torch.models import ViT
-    from deephisto_tpu_torch.predict import predict_full_fused
+    not ported yet is its int8 serving form (the JAX ``quantize_vit`` and
+    ``FoldedStemViT``), which ``quantize_model`` refuses, naming ROADMAP."""
+    from deephisto_tpu_torch.models import ViT, quantize_model
 
     m = get_model(5, arch="vit", depth=1, dtype=torch.float32, input_size=64)
     assert isinstance(m, ViT)
-    m.wants_uint8 = True
-    with pytest.raises(ValueError, match="ROADMAP"):
-        predict_full_fused(np.zeros((64, 64, 3), np.uint8), m, 5, patch_size=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quantize_model(m, [np.zeros((1, 64, 64, 3), np.float32)])
