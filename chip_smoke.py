@@ -33,21 +33,30 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
 11. the int8 ResNet-18: a seeded s2d-stem ResNet-18 (random BN statistics)
     quantized by ``quantize_resnet`` on 32 seeded images of 224², as
     bench.py does, its head centred: K6 (the int8
-    conv + epilogue) against its plain version on the inputs of every conv
-    of one exact-path batch (256 × 224²) and of one fcn tile batch (16 tiles
-    of 1152², bench.py's headline staging), both modes bit-equal, two runs
-    bit-identical, each timed beside its bound, its plain version and two
-    yardsticks that are not the same function (``torch._int_mm`` on the
-    im2col'd operand, cuDNN's bf16 conv);
+    conv + epilogue, the block epilogue fused in) against its plain version
+    on the inputs of every conv of one exact-path batch (256 × 224²) and of
+    one fcn tile batch (16 tiles of 1152², bench.py's headline staging),
+    each call in its own mode and in the f32 and int8 modes, bit-equal, two
+    runs bit-identical, each timed in its own mode with its design (wgmma
+    or mma.sync) beside its bound, its plain version and two yardsticks
+    that are not the same function (``torch._int_mm`` on the im2col'd
+    operand, cuDNN's bf16 conv);
 12. the exact int8 predict on the 16384² slide (K1's uint8 mode, K6, K2):
-    patches/s, peak memory, launches, profile, and on a 2048² crop the same
-    path with K6's plain version: maps equal, scores bit-equal;
+    patches/s, peak memory, launches, profile; the same predict with each
+    block's epilogue as torch ops after K6's f32 mode (the unfused
+    composition): the same map, patches/s, and launches a batch by kernel
+    group, with no add, relu or cast launched per residual block in the
+    fused one; the input quantize and the s2d pack of one batch (B4, torch
+    ops) beside their byte bound; and on a 2048² crop the same path with
+    K6's plain version: maps equal, scores bit-equal;
 13. the fcn serving mode on the 16384² slide: bench.py's headline
     (``stage_for_fcn(pack=8, pre_tile=True)``, pack_l1, tile 1024, halo 64,
     16 tiles a step), then its pack-4 int8 and bf16 rows: equivalent
     patches/s, staging seconds, peak memory, agreement with the exact int8
-    map (reported, not gated), a profile of the headline, and the headline
-    against its plain-K6 composition on the crop;
+    map (reported, not gated), a profile of the headline, K6 a batch and the
+    exact and headline predicts with every conv on the mma.sync kernel
+    against K6's chosen designs, in turns, and the headline against its
+    plain-K6 composition on the crop;
 14. training main path: the port's synthetic dataset (3 train slides of
     3072², hard, seed 7, as benchmarks/time_to_accuracy.py), the region
     sampler (patch 224, layer 2, 4 patches a region, one image a batch), a
@@ -773,36 +782,43 @@ INT8_CHECK_SIDE = 2048  # crop of the int8 paths vs their plain-K6 composition
 
 
 class RecordConvs:
-    """Within ``with``: every K6 call of the int8 ResNet is recorded (its
-    inputs, on the card) and, with ``plain=True``, served by K6's plain
-    version instead of the kernel (the plain-K6 composition)."""
+    """Within ``with``: every K6 call of the int8 ResNet (its f32, int8 and
+    block modes) is recorded as (mode, its inputs on the card) and, with
+    ``plain=True``, served by K6's plain version (the plain-K6
+    composition); with ``unfused=True`` each block-mode call runs as K6's
+    f32 mode followed by the block epilogue as torch ops (the unfused
+    composition)."""
 
-    def __init__(self, record=True, plain=False):
-        self.record, self.plain, self.calls = record, plain, []
+    def __init__(self, record=True, plain=False, unfused=False):
+        self.record, self.plain, self.unfused, self.calls = record, plain, unfused, []
 
     def __enter__(self):
         from deephisto_tpu_torch.models import quantize as qmod
         from deephisto_tpu_torch.ops import conv_int8 as k6
 
-        self._saved = qmod.conv_f32, qmod.conv_to_int8
+        self._saved = qmod.conv_f32, qmod.conv_to_int8, qmod.conv_int8_block
 
-        def wrap(fn, to_int8):
-            def conv(x, w, stride, pads, a, b):
+        def wrap(fn, mode):
+            def conv(x, w, stride, pads, a, b, *epi):
+                args = (x, w, stride, pads, a, b, *epi)
                 if self.record:
-                    self.calls.append((x, w, stride, pads, a, b, to_int8))
+                    self.calls.append((mode, args))
                 if self.plain:
-                    return k6.conv_int8_ref(x, w, stride, pads, a, b, to_int8)
-                return fn(x, w, stride, pads, a, b)
+                    return _plain_k6(mode, args)
+                if self.unfused and mode == "block":
+                    return k6.block_epilogue_ref(k6.conv_f32(*args[:6]), *epi)
+                return fn(*args)
             return conv
 
-        qmod.conv_f32 = wrap(self._saved[0], False)
-        qmod.conv_to_int8 = wrap(self._saved[1], True)
+        qmod.conv_f32 = wrap(self._saved[0], "f32")
+        qmod.conv_to_int8 = wrap(self._saved[1], "int8")
+        qmod.conv_int8_block = wrap(self._saved[2], "block")
         return self
 
     def __exit__(self, *exc):
         from deephisto_tpu_torch.models import quantize as qmod
 
-        qmod.conv_f32, qmod.conv_to_int8 = self._saved
+        qmod.conv_f32, qmod.conv_to_int8, qmod.conv_int8_block = self._saved
 
 
 def im2col(x, k: int, stride: int, pads) -> torch.Tensor:
@@ -844,63 +860,100 @@ def yardsticks(x, w, stride: int, pads) -> tuple:
     return tuple(out)
 
 
-def conv_bytes_ops(x, w, to_int8: bool, oh: int, ow: int) -> tuple[float, float]:
-    """Bytes a K6 call must move (input, kernel, constants read once, output
+OUT_BYTES = {"f32": 4, "int8": 1, "carry": 3}  # bytes an output element
+RES_BYTES = {"none": 0, "bf16": 2, "f32": 4, "int8": 1}
+
+
+def conv_bytes_ops(x, w, mode: str, epi, oh: int, ow: int) -> tuple[float, float]:
+    """Bytes a K6 call must move (input, kernel, constants read once; a block
+    call's residual read once and its outputs, the carry's bf16 and int8,
     written once) and its operations (2 a multiply-add)."""
     n = x.shape[0]
     cout, kh, kw, cin = w.shape
     m = n * oh * ow
-    nbytes = x.numel() + w.numel() + 8 * cout + m * cout * (1 if to_int8 else 4)
+    res_kind, out = (epi[1], epi[4]) if mode == "block" else ("none", mode)
+    nbytes = (x.numel() + w.numel() + 8 * cout + 8
+              + m * cout * (OUT_BYTES[out] + RES_BYTES[res_kind]))
     return nbytes, 2.0 * m * cout * kh * kw * cin
+
+
+def _run_k6(mode, args):
+    from deephisto_tpu_torch.ops import conv_int8 as k6
+
+    if mode == "block":
+        return k6.conv_int8_block(*args)
+    return k6.conv_int8(*args[:6], to_int8=mode == "int8")
+
+
+def _plain_k6(mode, args):
+    from deephisto_tpu_torch.ops import conv_int8 as k6
+
+    if mode == "block":
+        return k6.conv_int8_block_ref(*args)
+    return k6.conv_int8_ref(*args[:6], to_int8=mode == "int8")
+
+
+def _equal(got, want) -> bool:
+    """Tensors or tuples equal by value (a bf16 carry's -0 equals +0)."""
+    got, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, want))
+    return all(g.dtype == v.dtype and torch.equal(g, v) for g, v in zip(got, want))
 
 
 def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
     """K6 against its plain version on the recorded calls of each path (the
     convs of one batch of the exact path and of one tile batch of the fcn
-    path): both modes bit-equal, two runs bit-identical; each distinct call
-    timed beside its bound, its plain version and two yardsticks that are
-    not the same function (``torch._int_mm`` on the im2col'd operand, and
-    cuDNN's bf16 conv of the same shape). Returns (the kernels-line entry,
-    per-path sums)."""
+    path): each call in its own mode (a block call in its residual kind and
+    output) and in both f32 and int8 modes, bit-equal (by value), two runs
+    identical; each distinct call timed in its own mode beside its bound,
+    its plain version and two yardsticks that are not the same function
+    (``torch._int_mm`` on the im2col'd operand, and cuDNN's bf16 conv of the
+    same shape), with its design. Returns (the kernels-line entry, per-path
+    sums)."""
     from deephisto_tpu_torch.ops import conv_int8 as k6
 
     sums, rows, seen = {}, [], {}
     for path, calls in calls_by_path.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, int_mm_ms=0.0,
-                   cudnn_bf16_ms=0.0, calls=len(calls))
-        for x, w, stride, pads, a, b, to_int8 in calls:
+                   cudnn_bf16_ms=0.0, calls=len(calls), designs={})
+        for mode, args in calls:
+            x, w, stride, pads, a, b = args[:6]
+            modes = [("f32", args[:6]), ("int8", args[:6])]
+            if mode == "block":
+                modes.append(("block", args))
             outs = {}
-            for mode in (False, True):
-                got = k6.conv_int8(x, w, stride, pads, a, b, mode)
-                again = k6.conv_int8(x, w, stride, pads, a, b, mode)
+            for m, margs in modes:
+                got = _run_k6(m, margs)
+                again = _run_k6(m, margs)
                 torch.cuda.synchronize()
-                want = k6.conv_int8_ref(x, w, stride, pads, a, b, mode)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"K6 is not deterministic at {tuple(x.shape)}")
-                if not torch.equal(got, want):
+                if not _equal(got, again):
+                    raise AssertionError(f"K6 is not deterministic at {tuple(x.shape)} ({m})")
+                if not _equal(got, _plain_k6(m, margs)):
                     raise AssertionError(f"K6 differs from its plain version at {tuple(x.shape)} "
-                                         f"x {tuple(w.shape)} stride {stride} int8 {mode}")
-                outs[mode] = got
-            key = (tuple(x.shape), tuple(w.shape), stride, pads, to_int8)
+                                         f"x {tuple(w.shape)} stride {stride} mode {m} "
+                                         f"{args[7] if m == 'block' else ''} "
+                                         f"{args[10] if m == 'block' else ''}")
+                outs[m] = got
+            epi = args[6:]
+            label = mode if mode != "block" else f"block {epi[1]} -> {epi[4]}"
+            design = k6.conv_design(x.shape[3])
+            key = (tuple(x.shape), tuple(w.shape), stride, pads, label)
             if key not in seen:
-                oh, ow = outs[to_int8].shape[1:3]
-                nbytes, ops = conv_bytes_ops(x, w, to_int8, oh, ow)
-                cout, k = w.shape[0], w.shape[1]
-                ms = cuda_ms(lambda i: k6.conv_int8(x, w, stride, pads, a, b, to_int8), 10)
-                plain_ms = cuda_ms(lambda i: k6.conv_int8_ref(x, w, stride, pads, a, b, to_int8),
-                                   2, warmup=1)
+                oh, ow = outs["f32"].shape[1:3]
+                nbytes, ops = conv_bytes_ops(x, w, mode, epi, oh, ow)
+                ms = cuda_ms(lambda i: _run_k6(mode, args), 10)
+                plain_ms = cuda_ms(lambda i: _plain_k6(mode, args), 2, warmup=1)
                 int_mm_ms, cudnn_ms = yardsticks(x, w, stride, pads)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = ops / INT8_OP_PER_S * 1e3
                 seen[key] = dict(path=path, x=list(x.shape), w=list(w.shape), stride=stride,
-                                 pads=[list(p) for p in pads], to_int8=to_int8, ms=ms,
+                                 pads=[list(p) for p in pads], mode=label, design=design, ms=ms,
                                  plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                                  bound_ms=max(bytes_ms, ops_ms), tops=ops / ms / 1e9,
                                  int_mm_ms=int_mm_ms, cudnn_bf16_ms=cudnn_ms)
                 rows.append(seen[key])
-                print(f"K6 conv_int8 [{path}] x {tuple(x.shape)} w {tuple(w.shape)} stride {stride} "
-                      f"pads {pads} {'int8' if to_int8 else 'f32'} out: bit-equal to the plain "
-                      f"version in both modes; {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s, bound "
+                print(f"K6 conv_int8 [{path}] {design} x {tuple(x.shape)} w {tuple(w.shape)} "
+                      f"stride {stride} pads {pads} {label}: bit-equal to the plain version in "
+                      f"{', '.join(outs)}; {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s, bound "
                       f"{max(bytes_ms, ops_ms):.4f} ms ({'bytes' if bytes_ms > ops_ms else 'ops'}); "
                       f"plain {plain_ms:.3f} ms; yardsticks (not the same function): _int_mm "
                       f"{int_mm_ms} ms, cuDNN bf16 conv {cudnn_ms} ms")
@@ -909,6 +962,7 @@ def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
                 tot[f] += r[f]
             for f in ("int_mm_ms", "cudnn_bf16_ms"):
                 tot[f] = None if tot[f] is None or r[f] is None else tot[f] + r[f]
+            tot["designs"][design] = tot["designs"].get(design, 0) + 1
             del outs
         sums[path] = tot
         print(f"K6 over the {len(calls)} convs of one {path} batch: " + json.dumps(tot))
@@ -916,18 +970,61 @@ def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
     entry = {
         "name": "conv_int8", "route": "cuda", "source": "deephisto_tpu_torch/csrc/conv_int8.cu",
         "replaces": "deephisto_tpu/models/quantize.py:460 (conv_s32 / conv_f32 / conv_to_int8, "
-                    "XLA-lowered on the TPU)",
+                    "XLA-lowered on the TPU, and the block epilogue of :669-684)",
         "max_abs_err": 0.0,
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes" if main["bytes_ms"] > main["ops_ms"] else "operations",
         "library_ms": None,
-        "note": "ms, plain_ms and bound_ms sum the 20 convs of one exact-path batch of 256",
+        "design": {p: s["designs"] for p, s in sums.items()},
+        "note": "ms, plain_ms and bound_ms sum the 20 convs of one exact-path batch of 256, "
+                "each in its own mode (block convs with their fused epilogue)",
         "yardsticks_not_the_same_function": {
             p: {"int_mm_ms": s["int_mm_ms"], "cudnn_bf16_conv_ms": s["cudnn_bf16_ms"]}
             for p, s in sums.items()},
         "by_path": sums, "by_call": rows,
     }
     return entry, sums
+
+
+class ForceDesign:
+    """Within ``with``: every K6 launch takes ``design`` (None: the
+    chooser's); the mma.sync kernel runs any conv."""
+
+    def __init__(self, design):
+        self.design = design
+
+    def __enter__(self):
+        from deephisto_tpu_torch.ops import conv_int8 as k6
+
+        self._saved = k6.conv_design
+        if self.design is not None:
+            k6.conv_design = lambda cin: self.design
+        return self
+
+    def __exit__(self, *exc):
+        from deephisto_tpu_torch.ops import conv_int8 as k6
+
+        k6.conv_design = self._saved
+
+
+def design_ab(calls_by_path: dict, predicts: dict) -> dict:
+    """K6 a batch (the recorded calls, each in its own mode) and each predict
+    of ``predicts`` ({label: (fn, patches)}) with every conv on the mma.sync
+    kernel (K6's first design, the block epilogue fused) and with
+    ``conv_design``'s choice, in turns (mma.sync, chooser, chooser,
+    mma.sync); predicts best of 2 after a warm-up."""
+    out = {}
+    for design in ("mma.sync", None, None, "mma.sync"):
+        r = out.setdefault(design or "conv_design", {"k6_batch_ms": {}, "patches_per_s": {}})
+        with ForceDesign(design):
+            for path, calls in calls_by_path.items():
+                ms = sum(cuda_ms(lambda i: _run_k6(m, a), 10) for m, a in calls)
+                r["k6_batch_ms"].setdefault(path, []).append(ms)
+            for label, (fn, n) in predicts.items():
+                _, _, _, best, _, _ = run_timed(fn, f"{label}, K6 {design or 'conv_design'}",
+                                                MAIN_SIDE, runs=2)
+                r["patches_per_s"].setdefault(label, []).append(n / best)
+    return out
 
 
 def seeded_int8(device, model, slide, dense):
@@ -1177,14 +1274,18 @@ def main() -> int:
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
     slide0 = torch.zeros((BS,), dtype=torch.int32)
-    with RecordConvs() as exact_rec, torch.inference_mode():
-        qexact(gather_multi_u8(slide[None], slide0, dense[:BS], PS))
-    hh, ft = FCN_HALO // 32, FCN_TILE // 32
-    with RecordConvs() as fcn_rec, torch.inference_mode():
-        tile_logits(qpack, staged.tiles[:FCN_TB], hh, ft, qpack.fc_kernel, pre_packed="s2d8")
-    k6_entry, k6_sums = check_k6({"exact_int8_batch": exact_rec.calls,
-                                  f"fcn_tile_batch_{FCN_TB}x{FCN_TILE + 2 * FCN_HALO}": fcn_rec.calls})
-    del exact_rec, fcn_rec
+
+    def record_k6_calls() -> dict:
+        """The K6 calls of one exact batch and of one fcn tile batch, by path."""
+        with RecordConvs() as exact_rec, torch.inference_mode():
+            qexact(gather_multi_u8(slide[None], slide0, dense[:BS], PS))
+        with RecordConvs() as fcn_rec, torch.inference_mode():
+            tile_logits(qpack, staged.tiles[:FCN_TB], FCN_HALO // 32, FCN_TILE // 32,
+                        qpack.fc_kernel, pre_packed="s2d8")
+        return {"exact_int8_batch": exact_rec.calls,
+                f"fcn_tile_batch_{FCN_TB}x{FCN_TILE + 2 * FCN_HALO}": fcn_rec.calls}
+
+    k6_entry, k6_sums = check_k6(record_k6_calls())  # the recorded inputs go after it
     k6_entry["launches"] = 0
     k6_entry["launches_by_path"] = {}
     kernels.append(k6_entry)
@@ -1205,8 +1306,45 @@ def main() -> int:
     print(f"exact int8 path: {n_patches} patches in {best_s:.4f} s = "
           f"{n_patches / best_s:.1f} patches/s; K6 {launches['conv_int8'] // runs} launches a "
           f"predict; classes present {np.bincount(exact_map.ravel(), minlength=N_CLASSES).tolist()}")
-    print(f"profile of one {MAIN_SIDE}^2 exact int8 predict: "
-          + json.dumps(profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))))
+    fused_prof = profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))
+    print(f"profile of one {MAIN_SIDE}^2 exact int8 predict: " + json.dumps(fused_prof))
+    # the same predict with each block's epilogue as torch ops after K6's
+    # f32 mode (the unfused composition): the same map, and the
+    # torch launches the fused epilogue removes, by group
+    with RecordConvs(record=False, unfused=True):
+        _, _, _, unfused_s, _, unfused_out = run_timed(
+            lambda: predict_full_fused(slide, qexact, N_CLASSES),
+            "exact int8 predict, block epilogue as torch ops", MAIN_SIDE, runs=2)
+        unfused_prof = profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))
+    if not np.array_equal(unfused_out[0], exact_map):
+        raise AssertionError("the exact int8 map differs with the block epilogue as torch ops")
+    n_batches = -(-n_patches // BS)
+    per_batch = {g: {"fused": fused_prof["group_launches"].get(g, 0) / n_batches,
+                     "unfused": unfused_prof["group_launches"].get(g, 0) / n_batches}
+                 for g in sorted(set(fused_prof["group_launches"])
+                                 | set(unfused_prof["group_launches"]))}
+    exact_int8["unfused_epilogue"] = {"patches_per_s": n_patches / unfused_s, "best_s": unfused_s,
+                                      "profile": unfused_prof}
+    print(f"exact int8 launches a batch by group, fused block epilogue vs torch ops: "
+          f"{json.dumps(per_batch)}; patches/s {n_patches / best_s:.1f} vs "
+          f"{n_patches / unfused_s:.1f}")
+    n_blocks = sum(qexact.stage_sizes)
+    # B4, left to torch ops: the input quantize and the s2d pack of one batch,
+    # each beside its byte bound (int8 or uint8 read once, int8 written once)
+    from deephisto_tpu_torch.models.quantize import s2d_pack4
+
+    u8 = gather_multi_u8(slide[None], slide0, dense[:BS], PS)
+    x8 = qexact.quantize_input(u8)
+    b4 = {"quantize_ms": cuda_ms(lambda i: qexact.quantize_input(u8), 10),
+          "s2d_pack_ms": cuda_ms(lambda i: s2d_pack4(x8).contiguous(), 10),
+          "bound_ms_each": 2 * u8.numel() / HBM_BYTES_PER_S * 1e3}
+    exact_int8["b4_per_batch"] = b4
+    print(f"B4 on one exact batch (torch ops): {json.dumps(b4)}")
+    del u8, x8
+    for g in ("residual / bias add", "relu", "dtype casts / copies"):
+        if per_batch.get(g, {"fused": 0})["fused"] >= n_blocks:
+            raise AssertionError(f"the fused exact int8 predict still launches {g} kernels per "
+                                 f"residual block: {per_batch[g]}")
     crop = slide[:INT8_CHECK_SIDE, :INT8_CHECK_SIDE].contiguous()
     int8_vs_plain(lambda: predict_full_fused(crop, qexact, N_CLASSES),
                   f"exact int8 predict on a {INT8_CHECK_SIDE}^2 crop")
@@ -1236,6 +1374,14 @@ def main() -> int:
     print(f"profile of one {MAIN_SIDE}^2 fcn predict (headline): " + json.dumps(profile_device(
         lambda: predict_full_fcn(staged, qpack, N_CLASSES, tile=FCN_TILE, halo=FCN_HALO,
                                  tile_batch=FCN_TB))))
+    # K6's designs end to end, in turns: every conv on the mma.sync kernel
+    # against the chooser's wgmma kernel at Cin % 64 == 0
+    ab = design_ab(record_k6_calls(), {
+        "exact_int8": (lambda: predict_full_fused(slide, qexact, N_CLASSES), n_patches),
+        "fcn_headline": (lambda: predict_full_fcn(staged, qpack, N_CLASSES, tile=FCN_TILE,
+                                                  halo=FCN_HALO, tile_batch=FCN_TB), n_equiv)})
+    print(f"K6 designs, in turns (mma.sync everywhere vs conv_design): {json.dumps(ab)}")
+    k6_entry["design_ab"] = ab
     del staged
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -7,9 +7,16 @@
   int8 per tensor at the scale a float forward over calibration batches
   records (:func:`calibrate`, ``s_x = absmax/127``).
 * :class:`QuantizedResNet` runs every conv as an s8 × s8 → s32 convolution
-  with its f32 epilogue, kernel K6 (``ops/conv_int8.py``): dequant + bias, or
-  dequant + bias + relu + requant to the next conv's input scale in one
-  epilogue. Residual adds, GAP and the fc head stay float.
+  with its f32 epilogue, kernel K6 (``ops/conv_int8.py``): dequant + bias
+  (the downsample), dequant + bias + relu + requant to the next conv's input
+  scale (a block's inner convs), or, for a block's last conv and the s2d
+  stem, the whole block epilogue in the conv: dequant + bias, the residual
+  added (the bf16 carry, the downsample's f32 output or the dequantized
+  int8 input), relu, and the bf16 carry and the next conv's int8 input
+  written, as the JAX package's comment has XLA fuse it (quantize.py:387).
+  The block whose output is kept (the last, or where ``up_to`` stops)
+  writes it in f32. The imagenet stem's max pool, the GAP and the fc head
+  stay torch ops.
 
 The JAX package's ``pack_l1`` (stage 1 on 2×2 space-to-depth data) and its
 ``pre_packed="s2d8"`` stem are TPU lane layouts that it documents as bit
@@ -23,7 +30,10 @@ Numerics follow the JAX package: every scale and epilogue constant is f32
 (``inv0 / 255``, ``dequant·inv``, ``bias·inv``, ``1 / inv``); ``s_x`` and
 ``1 / s_x`` are taken in float64 from the f32 absmax and rounded to f32 as
 Python floats are there; ``jnp.round`` is half to even, as ``torch.round``;
-with ``int8_residual=False`` block outputs are carried in bf16.
+with ``int8_residual=False`` block outputs are carried in bf16. The
+requant constants ``dequant·inv`` and ``bias·inv`` and each conv's ``s_x =
+1 / inv`` are formed once, when the model is built, as the same f32
+operations the JAX package runs per call; they stay on the model's device.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv_int8 import conv_f32, conv_to_int8
+from ..ops.conv_int8 import conv_f32, conv_int8_block, conv_to_int8, quant_to
 from .resnet import BasicBlock, ResNet, same_pads
 
 EPS = 1e-5  # BatchNorm epsilon (resnet.py BatchNorm)
@@ -225,6 +235,15 @@ class QConv(nn.Module):
         self.register_buffer("dequant", dequant.to(torch.float32).contiguous())
         self.register_buffer("bias", bias.to(torch.float32).contiguous())
         self.register_buffer("in_inv_scale", torch.as_tensor(in_inv_scale, dtype=torch.float32))
+        # s_x, the dequant of an int8 residual (quantize.py:647), formed once
+        self.register_buffer("in_scale", 1.0 / self.in_inv_scale, persistent=False)
+
+    def requant_to(self, nxt: "QConv") -> None:
+        """Form ``dequant·inv`` and ``bias·inv`` (``inv`` the next conv's
+        input scale, quantize.py:477-479) once: the constants of this conv's
+        int8 mode (``req_a``, ``req_b``)."""
+        self.register_buffer("req_a", self.dequant * nxt.in_inv_scale, persistent=False)
+        self.register_buffer("req_b", self.bias * nxt.in_inv_scale, persistent=False)
 
 
 class QuantizedResNet(nn.Module):
@@ -261,6 +280,8 @@ class QuantizedResNet(nn.Module):
         self.convs = nn.ModuleDict({
             name.replace("/", "__"): QConv(**p) for name, p in qparams.items() if name != "fc"
         })
+        for name, nxt in self._requant_edges():
+            self.q(name).requant_to(self.q(nxt))
         # copies: the folded fc may share storage with the float model's
         for name, key in (("fc_kernel", "kernel"), ("fc_bias", "bias")):
             self.register_buffer(name, qparams["fc"][key].to(
@@ -269,22 +290,39 @@ class QuantizedResNet(nn.Module):
     def q(self, name: str) -> QConv:
         return self.convs[name.replace("/", "__")]
 
+    def _requant_edges(self) -> list[tuple[str, str]]:
+        """(conv, next conv) of every int8-mode conv of :meth:`forward`."""
+        edges = [("conv1", f"{self._block_list[0][0]}/conv1")]
+        inner = ("conv1", "conv2") if self.basic else ("conv1", "conv2", "conv3")
+        for name, _ in self._block_list:
+            edges += [(f"{name}/{a}", f"{name}/{b}") for a, b in zip(inner, inner[1:])]
+        return edges
+
     def _conv_f32(self, name, x8, stride, padding=None):
         layer = self.q(name)
         k = layer.kernel_q.shape[1]
         return conv_f32(x8, layer.kernel_q, stride, padding or _same(x8, k, stride),
                         layer.dequant, layer.bias)
 
-    def _conv_to_int8(self, name, next_name, x8, stride, padding=None):
+    def _conv_to_int8(self, name, x8, stride, padding=None):
+        """The int8 mode at the constants :meth:`QConv.requant_to` formed."""
         layer = self.q(name)
-        inv = self.q(next_name).in_inv_scale
         k = layer.kernel_q.shape[1]
         return conv_to_int8(x8, layer.kernel_q, stride, padding or _same(x8, k, stride),
-                            layer.dequant * inv, layer.bias * inv)
+                            layer.req_a, layer.req_b)
+
+    def _conv_block(self, name, x8, stride, residual, res_kind, res_scale, next_name, out):
+        """The block mode of K6 (``ops/conv_int8.py:conv_int8_block``): conv
+        ``name`` with the block epilogue; ``next_name``'s input scale for
+        the int8 output."""
+        layer = self.q(name)
+        k = layer.kernel_q.shape[1]
+        inv = None if next_name is None else self.q(next_name).in_inv_scale
+        return conv_int8_block(x8, layer.kernel_q, stride, _same(x8, k, stride), layer.dequant,
+                               layer.bias, residual, res_kind, res_scale, inv, out)
 
     def _quant_to(self, name, xf):
-        inv = self.q(name).in_inv_scale
-        return torch.clamp(torch.round(xf.float() * inv), -127, 127).to(torch.int8)
+        return quant_to(xf, self.q(name).in_inv_scale)
 
     def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
         """The stem's input quantize (quantize.py:483-500): int8 passes
@@ -329,19 +367,19 @@ class QuantizedResNet(nn.Module):
             elif not pre_packed:
                 x8 = s2d_pack4(x8)
             x8 = x8.contiguous()
-            stem_stride, stem_pad = 1, None
+            if self.int8_residual:
+                x8 = self._conv_to_int8("conv1", x8, 1)
+            else:  # relu, the bf16 carry and the block input in K6
+                x_bf, x8 = self._conv_block("conv1", x8, 1, None, "none", None,
+                                            first_block_in, "carry")
         else:
-            stem_stride, stem_pad = 2, ((3, 3), (3, 3))
-        if self.int8_residual:
-            x8 = self._conv_to_int8("conv1", first_block_in, x8, stem_stride, stem_pad)
-            if self.stem != "s2d":
-                x8 = max_pool(x8)  # monotone: commutes with the requant
-        else:
-            x_f = torch.relu(self._conv_f32("conv1", x8, stem_stride, stem_pad))
-            if self.stem != "s2d":
-                x_f = max_pool(x_f)
-            x_bf = x_f.to(torch.bfloat16)
-            x8 = self._quant_to(first_block_in, x_bf)
+            stem_pad = ((3, 3), (3, 3))
+            if self.int8_residual:
+                x8 = max_pool(self._conv_to_int8("conv1", x8, 2, stem_pad))  # monotone
+            else:  # the max pool follows the relu: torch ops
+                x_f = max_pool(torch.relu(self._conv_f32("conv1", x8, 2, stem_pad)))
+                x_bf = x_f.to(torch.bfloat16)
+                x8 = self._quant_to(first_block_in, x_bf)
         if self.pack_l1 and pre_packed != "s2d8" and (x8.shape[1] % 2 or x8.shape[2] % 2):
             raise ValueError(
                 f"pack_l1 needs an even stage-1 spatial extent, got {tuple(x8.shape[1:3])} "
@@ -350,37 +388,42 @@ class QuantizedResNet(nn.Module):
         if up_to == "stem":
             return x8 if x_bf is None else x_bf
 
-        # ---- residual stages ----------------------------------------------
+        # ---- residual stages: each block's last conv carries its epilogue --
         n1 = self.stage_sizes[0]
+        last = "conv2" if self.basic else "conv3"
         out_f = None
         for bi, (name, stride) in enumerate(blocks):
             if self.basic:
-                h8 = self._conv_to_int8(f"{name}/conv1", f"{name}/conv2", x8, stride)
-                y_f = self._conv_f32(f"{name}/conv2", h8, 1)
+                h8 = self._conv_to_int8(f"{name}/conv1", x8, stride)
             else:
-                h8 = self._conv_to_int8(f"{name}/conv1", f"{name}/conv2", x8, 1)
-                h8 = self._conv_to_int8(f"{name}/conv2", f"{name}/conv3", h8, stride)
-                y_f = self._conv_f32(f"{name}/conv3", h8, 1)
+                h8 = self._conv_to_int8(f"{name}/conv1", x8, 1)
+                h8 = self._conv_to_int8(f"{name}/conv2", h8, stride)
+            res_scale = None
             if f"{name}__downsample_conv" in self.convs:
                 # same input tensor as conv1 → same calibrated scale: reuse x8
-                res_f = self._conv_f32(f"{name}/downsample_conv", x8, stride)
+                residual, res_kind = self._conv_f32(f"{name}/downsample_conv", x8, stride), "f32"
             elif self.int8_residual:
-                s_in = 1.0 / self.q(f"{name}/conv1").in_inv_scale
-                res_f = x8.float() * s_in
+                residual, res_kind = x8, "int8"
+                res_scale = self.q(f"{name}/conv1").in_scale
             else:
-                res_f = x_bf.float()
-            out_f = torch.relu(y_f + res_f)
-            if not self.int8_residual:
-                x_bf = out_f.to(torch.bfloat16)
-            if bi + 1 < len(blocks):
-                src = out_f if self.int8_residual else x_bf
-                x8 = self._quant_to(f"{blocks[bi + 1][0]}/conv1", src)
+                residual, res_kind = x_bf, "bf16"
             stage = name.split("_")[0]
             stage_done = bi + 1 == len(blocks) or not blocks[bi + 1][0].startswith(stage + "_")
-            if stage_done and up_to == {"layer1": "l1"}.get(stage, stage):
-                return out_f
-            if bi == n1 and up_to == "l2_entry":
-                return out_f
+            stop = (stage_done and up_to == {"layer1": "l1"}.get(stage, stage)) or (
+                bi == n1 and up_to == "l2_entry")
+            if stop or bi + 1 == len(blocks):  # the block output is kept: f32
+                out_f = self._conv_block(f"{name}/{last}", h8, 1, residual, res_kind, res_scale,
+                                         None, "f32")
+                if stop:
+                    return out_f
+            else:
+                nxt = f"{blocks[bi + 1][0]}/conv1"
+                if self.int8_residual:
+                    x8 = self._conv_block(f"{name}/{last}", h8, 1, residual, res_kind, res_scale,
+                                          nxt, "int8")
+                else:
+                    x_bf, x8 = self._conv_block(f"{name}/{last}", h8, 1, residual, res_kind,
+                                                res_scale, nxt, "carry")
 
         if features:
             return out_f.to(torch.bfloat16)

@@ -1,6 +1,7 @@
 """Device ops: patch gather (kernel K1, with its multi-slide uint8 mode),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
-and the int8 convolution with its epilogue (kernel K6)."""
+and the int8 convolution with its epilogue, the ResNet block's among its
+modes (kernel K6)."""
 
 from .attention import (
     attention_plain,
@@ -11,7 +12,13 @@ from .attention import (
     flash_attention_ref,
 )
 # the module's entry points; ``ops.conv_int8`` stays the module
-from .conv_int8 import conv_f32, conv_int8_ref, conv_to_int8
+from .conv_int8 import (
+    conv_f32,
+    conv_int8_block,
+    conv_int8_block_ref,
+    conv_int8_ref,
+    conv_to_int8,
+)
 from .gather import (
     gather_multi_u8,
     gather_normalize,
@@ -31,6 +38,8 @@ from .stitch import (
 __all__ = [
     "attention_plain",
     "conv_f32",
+    "conv_int8_block",
+    "conv_int8_block_ref",
     "conv_int8_ref",
     "conv_to_int8",
     "coverage_footprint",

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from deephisto_tpu_torch import _build
+from deephisto_tpu_torch.models.resnet import same_pads
 from deephisto_tpu_torch.ops import (
     flash_attention,
     flash_attention_bwd,
@@ -416,7 +417,10 @@ def test_gather_multi_kernel_matches_plain_on_card():
 
 # K6 cases: (x shape NHWC, Cout, kernel, stride, pads); SAME pads of flax,
 # the imagenet stem's (3, 3), stride-2 (0, 1) on even extents, odd channel
-# counts (the byte-wise gather) and a K of 4608 taps
+# counts (the byte-wise gather) and a K of 4608 taps; then the wgmma design
+# at a ragged M (3·7·7 = 147 pixels, as stage 4's 256·7·7 = 12,544 is not a
+# multiple of 128), uneven stride-2 pads on odd extents, an fcn tile's
+# extent (36 = 1152 / 32) and a stride-2 downsample at Cin 128
 K6_CASES = [
     ((2, 17, 19, 16), 24, 3, 1, ((1, 1), (1, 1))),
     ((2, 18, 20, 32), 40, 3, 2, ((0, 1), (0, 1))),
@@ -427,6 +431,10 @@ K6_CASES = [
     ((2, 14, 14, 64), 128, 1, 2, ((0, 0), (0, 0))),
     ((2, 7, 7, 512), 512, 3, 1, ((1, 1), (1, 1))),
     ((1, 9, 9, 7), 3, 2, 2, ((0, 1), (0, 1))),
+    ((3, 7, 7, 256), 128, 3, 1, ((1, 1), (1, 1))),
+    ((2, 9, 11, 64), 64, 3, 2, ((0, 1), (0, 1))),
+    ((1, 36, 36, 64), 64, 3, 1, ((1, 1), (1, 1))),
+    ((2, 14, 14, 128), 256, 1, 2, ((0, 0), (0, 0))),
 ]
 
 
@@ -510,6 +518,108 @@ def test_conv_int8_kernel_matches_plain_on_card(case):
         assert _build.launches[k6.KERNEL] == 2
         assert torch.equal(got, again)
         assert torch.equal(got.cpu(), fn(x, w, stride, pads, a, b)), (case, fn.__name__)
+
+
+def _block_inputs(x, w, stride, pads, a, b, res_kind, seed):
+    """A residual of ``res_kind`` at the conv's output shape and the two
+    scalars; next_inv puts the largest output near 127, so that the requant
+    rounds everywhere and clips the tail."""
+    rng = np.random.default_rng(seed)
+    y = k6.conv_int8_ref(x, w, stride, pads, a, b, False)
+    scale = float(y.abs().max())
+    res_scale = torch.tensor(np.float32(scale / 127 / rng.uniform(1.0, 2.0)))
+    next_inv = torch.tensor(np.float32(127 / scale * rng.uniform(1.0, 1.5)))
+    if res_kind == "none":
+        return None, res_scale, next_inv
+    if res_kind == "int8":
+        return torch.from_numpy(rng.integers(-127, 128, tuple(y.shape), dtype=np.int8)), \
+            res_scale, next_inv
+    r = torch.from_numpy((rng.normal(0, 0.5, tuple(y.shape)) * scale).astype(np.float32))
+    return (r.to(torch.bfloat16) if res_kind == "bf16" else r), res_scale, next_inv
+
+
+def _block_matches_plain_on_card(x, w, stride, pads, a, b, seed):
+    """K6's block mode in every (residual, output) on the card vs its plain
+    version: equal values (bf16 by value: -0 == +0), two runs identical,
+    one launch a call."""
+    dev = [t.cuda() for t in (x, w, a, b)]
+    for ri, res_kind in enumerate(k6.RES_KINDS):
+        residual, res_scale, next_inv = _block_inputs(x, w, stride, pads, a, b, res_kind,
+                                                      seed + ri)
+        for out in k6.OUT_KINDS:
+            host = (residual, res_kind, res_scale, next_inv, out)
+            card = tuple(t.cuda() if isinstance(t, torch.Tensor) else t for t in host)
+            _build.reset_launches()
+            got = k6.conv_int8_block(dev[0], dev[1], stride, pads, dev[2], dev[3], *card)
+            again = k6.conv_int8_block(dev[0], dev[1], stride, pads, dev[2], dev[3], *card)
+            torch.cuda.synchronize()
+            assert _build.launches[k6.KERNEL] == 2
+            want = k6.conv_int8_block_ref(x, w, stride, pads, a, b, *host)
+            got, again, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, again, want))
+            for g, r, v in zip(got, again, want):
+                assert g.dtype == v.dtype and torch.equal(g, r), (res_kind, out)
+                assert torch.equal(g.cpu(), v), (tuple(x.shape), tuple(w.shape), res_kind, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(K6_CASES)))
+def test_conv_int8_block_mode_matches_plain_on_card(case):
+    """The fused block epilogue, in each residual kind and output, at every
+    K6 case (both designs, odd Cout, ragged M, uneven pads)."""
+    _need_card()
+    shape, cout, k, stride, pads = K6_CASES[case]
+    x, w, a, b = _k6_inputs(shape, cout, k, seed=case)
+    _block_matches_plain_on_card(x, w, stride, pads, a, b, seed=100 + case)
+
+
+# the wgmma design: Cin 64-512, 1x1 and 3x3, strides 1 and 2 (SAME pads)
+K6_WGMMA = [(cin, k, s) for cin in (64, 128, 256, 512) for k, s in ((1, 1), (1, 2), (3, 1), (3, 2))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,k,stride", K6_WGMMA)
+def test_conv_int8_wgmma_design_matches_plain_on_card(cin, k, stride):
+    _need_card()
+    assert k6.conv_design(cin) == "wgmma"
+    shape = (2, 15, 14, cin)
+    pads = tuple(same_pads(n, k, stride) for n in shape[1:3])
+    cout = {64: 64, 128: 128, 256: 256, 512: 192}[cin]
+    x, w, a, b = _k6_inputs(shape, cout, k, seed=cin + k + stride)
+    xc, wc, ac, bc = (t.cuda() for t in (x, w, a, b))
+    for fn in (k6.conv_f32, k6.conv_to_int8):
+        got = fn(xc, wc, stride, pads, ac, bc)
+        assert torch.equal(got.cpu(), fn(x, w, stride, pads, a, b)), fn.__name__
+    _block_matches_plain_on_card(x, w, stride, pads, a, b, seed=cin)
+
+
+@pytest.mark.gpu
+def test_conv_int8_entry_point_refuses_unknown_codes_on_card():
+    """The C entry point refuses a design with no kernel for the conv (wgmma
+    at Cin 48), an unknown design, mode, residual kind or output kind, and a
+    missing epilogue pointer; it launches nothing then."""
+    _need_card()
+    x, w, a, b = (t.cuda() for t in _k6_inputs((1, 8, 8, 48), 64, 3, seed=0))
+    out = torch.empty((1, 8, 8, 64), device="cuda")
+    out2 = torch.empty((1, 8, 8, 64), device="cuda", dtype=torch.int8)
+    inv = torch.ones((), device="cuda")
+    lib = _build.load(k6.KERNEL, k6._SIGNATURE)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(design, mode, res=None, res_kind=0, out_kind=2, o2=None, nxt=None, xx=x, ww=w):
+        return lib.dh_conv_int8(0, xx.data_ptr(), 1, 8, 8, xx.shape[3], ww.data_ptr(), 64, 3, 3,
+                                1, 1, 1, 8, 8, a.data_ptr(), b.data_ptr(), design, mode, res,
+                                res_kind, None, nxt, out_kind, out.data_ptr(), o2, stream)
+
+    assert call(1, 0) == 0  # the mma.sync design at Cin 48 runs
+    assert call(2, 0) != 0  # wgmma has no kernel at Cin 48
+    assert call(0, 0) != 0 and call(3, 0) != 0  # no such design
+    assert call(1, 3) != 0  # no such mode
+    assert call(1, 2, res_kind=4) != 0 and call(1, 2, out_kind=3) != 0
+    assert call(1, 2, res_kind=1) != 0  # a residual kind without its residual
+    assert call(1, 2, out_kind=1) != 0  # an int8 output without next_inv
+    assert call(1, 2, out_kind=0, nxt=inv.data_ptr()) != 0  # the carry without out2
+    assert call(1, 2, out_kind=0, nxt=inv.data_ptr(), o2=out2.data_ptr()) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
