@@ -6,9 +6,16 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
 2. build: every kernel under ``deephisto_tpu_torch/csrc`` with ``nvcc``;
 3. kernels vs their plain PyTorch versions on the card at the main path's
-   shapes: K1 (gather + /255) bit-equal in f32 and bf16, K2 (stitch) within
-   1e-5 of the sequential loop and identical from run to run; each timed with
-   CUDA events beside its byte bound and, for K2, the library call;
+   shapes: K1 (gather + /255) bit-equal in f32 and bf16; K1's int8 mode
+   (the int8 model's input quantize and stem layout fused into the gather)
+   bit-equal in its three layouts at the int8 paths' shapes (s2d4: an exact
+   batch; s2d8_to_s2d4: an fcn headline step; hwc: an fcn pack-4 step and a
+   PackedSlide batch), timed beside its byte bound and the parent's
+   composition (the uint8 gather or tile copy, the quantize and the pack as
+   torch ops); K2 (stitch) bit-equal to the sequential loop and identical
+   from run to run (the main path's batches, spans, the map's last rows, a
+   wrapping batch, N = 1 and 2,000, a band of one tile row), timed beside its
+   byte bound, the library call and an empty launch on its grid;
 4. main path: ``predict_full_fused`` on a seeded 16384² uint8 slide with a
    seeded full-width bf16 ResNet-18 (5 classes, batch 256): one warm-up run,
    then the best of 3; patches/s, peak memory, and the launch counts of both
@@ -41,19 +48,24 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     or mma.sync) beside its bound, its plain version and two yardsticks
     that are not the same function (``torch._int_mm`` on the im2col'd
     operand, cuDNN's bf16 conv);
-12. the exact int8 predict on the 16384² slide (K1's uint8 mode, K6, K2):
-    patches/s, peak memory, launches, profile; the same predict with each
+12. the exact int8 predict on the 16384² slide (K1's int8 mode, K6, K2):
+    patches/s, peak memory, launches, profile; the same predict with the
+    parent's input path (K1's uint8 gather, the quantize and the s2d pack as
+    torch ops): map and scores bit-equal, no round, clamp or input cast
+    launched per batch in the int8 mode; the same predict with each
     block's epilogue as torch ops after K6's f32 mode (the unfused
     composition): the same map, patches/s, and launches a batch by kernel
     group, with no add, relu or cast launched per residual block in the
-    fused one; the input quantize and the s2d pack of one batch (B4, torch
-    ops) beside their byte bound; and on a 2048² crop the same path with
-    K6's plain version: maps equal, scores bit-equal;
+    fused one; and on a 2048² crop the same path with K6's plain version:
+    maps equal, scores bit-equal;
 13. the fcn serving mode on the 16384² slide: bench.py's headline
     (``stage_for_fcn(pack=8, pre_tile=True)``, pack_l1, tile 1024, halo 64,
     16 tiles a step), then its pack-4 int8 and bf16 rows: equivalent
     patches/s, staging seconds, peak memory, agreement with the exact int8
-    map (reported, not gated), a profile of the headline, K6 a batch and the
+    map (reported, not gated), a profile of the headline, the headline with
+    the parent's input path (map and scores bit-equal, no round, clamp or
+    input cast per step in the int8 mode), B6 (the window pool and ensemble,
+    torch ops) timed beside its byte bound, K6 a batch and the
     exact and headline predicts with every conv on the mma.sync kernel
     against K6's chosen designs, in turns, and the headline against its
     plain-K6 composition on the crop;
@@ -110,7 +122,6 @@ VIT_SIDE, VIT_CHECK_SIDE, VIT_DEPTH, VIT_PATCH = 8192, 2048, 6, 8
 PS, STRIDE, D, BS, N_CLASSES = 224, 112, 16, 256, 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # dense tensor-core peak, H100 SXM data sheet
-K2_TOL = 1e-5  # both sides add in patch order; f32 sums of the same terms
 # K3 vs its plain version: bf16 within 1 % of the largest |output| (P and the
 # output round to bf16 against other running maxima than the plain version's);
 # f32 within 1e-4 absolute (ex2.approx and another summation order)
@@ -264,7 +275,18 @@ def check_k1(slide, dense):
 
 
 def check_k2(dense, device):
+    """K2 against the sequential loop, bit-equal and identical from run to
+    run, on a 16384² predict's (1024, 1024) map: the main path's batches,
+    some off the map, spans (ps 200, d 16), the map's last rows, a batch that
+    wraps (negative coords: the whole map is K2's band), N = 1 and N = 2,000,
+    and a batch whose band is one tile row; timed on a main-path batch beside
+    its byte bound, ``index_put_`` and an empty launch on K2's grid (its
+    floor), and on the wrapping batch."""
+    import ctypes
+
+    from deephisto_tpu_torch import _build
     from deephisto_tpu_torch.ops import scatter_add_map, scatter_add_map_ref
+    from deephisto_tpu_torch.ops import stitch as stitch_mod
 
     dh = dw = MAIN_SIDE // D
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -274,32 +296,36 @@ def check_k2(dense, device):
                    dtype=np.int32)[:BS]
     )
     off_map = rng.integers(0, MAIN_SIDE + 2 * PS, size=(BS, 2)).astype(np.int32)
+    mid = len(dense) // 7
+    wraps = dense[mid:mid + BS].clone()
+    wraps[::7] -= MAIN_SIDE + 6 * D  # raw coords below 0: map cells in [-dh, 0) and below
+    wraps[1::9, 1] = -5 * D
+    band_row = torch.from_numpy(np.stack([np.full(BS, 33 * D), np.arange(BS) * 4 * D], 1)
+                                .astype(np.int32))
     cases = {  # name: (raw coords, ps) with d = 16
         "dense 224/16": (dense[:BS], 224),
         "random, some off the map, 224/16": (torch.from_numpy(off_map), 224),
         "dense 200/16 (spans)": (dense200, 200),
         "random, some off the map, 200/16 (spans)": (torch.from_numpy(off_map), 200),
+        "the map's last rows, 224/16": (dense[-BS:], 224),
+        "wraps (negative coords), 224/16": (wraps, 224),
+        "N = 1, 224/16": (dense[mid:mid + 1], 224),
+        "N = 2000, 224/16": (dense[mid:mid + 2000], 224),
+        "band of one tile row, 128/16": (band_row, 128),
     }
-    err = 0.0
     for name, (raw, ps) in cases.items():
         raw = raw.to(device)
         vals = torch.randn((len(raw), N_CLASSES), device=device, generator=gen)
         f = ps // D if ps % D == 0 else ps // D + 1
         spans = None if ps % D == 0 else (raw % D + ps) // D
-        runs = [
-            scatter_add_map(torch.zeros((dh, dw, N_CLASSES), device=device), raw // D, vals, f, spans)
-            for _ in range(2)
-        ]
+        base = torch.randn((dh, dw, N_CLASSES), device=device, generator=gen)
+        runs = [scatter_add_map(base.clone(), raw // D, vals, f, spans) for _ in range(2)]
         torch.cuda.synchronize()
         if not torch.equal(runs[0], runs[1]):
             raise AssertionError(f"K2 is not deterministic ({name})")
-        want = scatter_add_map_ref(torch.zeros_like(runs[0]), raw // D, vals, f, spans)
-        e = float((runs[0] - want).abs().max())
-        if e > K2_TOL:
-            raise AssertionError(f"K2 differs from its plain version by {e} ({name})")
-        err = max(err, e)
-        print(f"K2 scatter_add_map [{name}]: max |diff| {e} (tolerance {K2_TOL}), "
-              "two runs bit-identical")
+        if not torch.equal(runs[0], scatter_add_map_ref(base.clone(), raw // D, vals, f, spans)):
+            raise AssertionError(f"K2 differs from its plain version ({name})")
+        print(f"K2 scatter_add_map [{name}]: bit-equal to the plain loop, two runs identical")
 
     # timing: one main-path batch (the first 256 tiles of the dense grid)
     cds = (dense[:BS] // D).to(device)
@@ -308,6 +334,14 @@ def check_k2(dense, device):
     f = PS // D
     ms = cuda_ms(lambda i: scatter_add_map(acc, cds, vals, f), 50)
     plain_ms = cuda_ms(lambda i: scatter_add_map_ref(acc, cds, vals, f), 5)
+    wrap_cds = (wraps // D).to(device)
+    wrap_ms = cuda_ms(lambda i: scatter_add_map(acc, wrap_cds, vals, f), 50)
+    lib = _build.load("stitch", stitch_mod._SIGNATURE)
+    lib.dh_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.dh_empty_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    empty_ms = cuda_ms(lambda i: _build.check(lib, lib.dh_empty_launch(device.index, dh, dw, stream),
+                                              "empty launch"), 50)
     off = torch.arange(f, device=device)
     yy = (cds[:, 0, None, None] + off[None, :, None]).expand(BS, f, f).reshape(-1).long()
     xx = (cds[:, 1, None, None] + off[None, None, :]).expand(BS, f, f).reshape(-1).long()
@@ -317,13 +351,17 @@ def check_k2(dense, device):
     cells = {(y + a, x + b) for y, x in c for a in range(f) for b in range(f)
              if y + a < dh and x + b < dw}
     nbytes = BS * N_CLASSES * 4 + BS * 8 + 2 * len(cells) * N_CLASSES * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K2 on a main-path batch: {ms:.4f} ms; its byte bound {bound_ms:.5f} ms, an empty "
+          f"launch on its grid {empty_ms:.4f} ms (its floor); the wrapping batch (whole map) "
+          f"{wrap_ms:.4f} ms; index_put_ {library_ms:.4f} ms; plain {plain_ms:.3f} ms")
     return {
         "name": "scatter_add_map", "route": "cuda",
         "source": "deephisto_tpu_torch/csrc/stitch.cu",
         "replaces": "deephisto_tpu/ops/stitch.py:107",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms, "empty_launch_ms": empty_ms, "wrapping_batch_ms": wrap_ms,
     }
 
 
@@ -439,6 +477,134 @@ def check_k1_multi(device):
                     "the path's gather_patches_multi_xla, deephisto_tpu/ops/gather.py:59)",
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+    }
+
+
+def quantize_ops(u8, inv0):
+    """The int8 ResNet's uint8 input quantize as the parent ran it per batch,
+    torch ops (``QuantizedResNet.quantize_input``)."""
+    return torch.clamp(torch.round(u8.float() * (inv0 / 255.0)), -127, 127).to(torch.int8)
+
+
+def check_k1_int8(slide, dense, device):
+    """K1's int8 mode against its plain version in its three layouts at the
+    int8 paths' shapes, bit-equal on windows with odd, clamped and negative
+    starts and on a random table, two runs identical; each path's call timed
+    beside its byte bound, its plain version and the parent's composition
+    (K1's uint8 gather or the parent's tile copy, then the input quantize
+    and the stem's pack as torch ops):
+
+    * ``s2d4``: the exact int8 path on the raw slide (256 windows of 224²);
+    * ``s2d8_to_s2d4``: the fcn headline, 16 tiles of the pack-8 pre-tiled
+      staging (144² cells of 192 bytes);
+    * ``hwc``: the fcn pack-4 row, 16 tiles of the pack-4 staging (288²
+      cells of 48 bytes), and a ``PackedSlide`` batch (256 windows of 56²
+      cells), checked only."""
+    from deephisto_tpu_torch.ops import (
+        gather_multi_u8,
+        gather_quantize_int8,
+        gather_quantize_int8_ref,
+        s2d_pack4,
+        unpack_s2d8,
+    )
+    from deephisto_tpu_torch.predict import stage_for_fcn, stage_packed_slide
+
+    w = slide.shape[1]
+    rng = np.random.default_rng(SEED + 13)
+    inv0 = torch.tensor(127.0 / 0.9993, dtype=torch.float32, device=device)  # a calibrated scale
+    lut = quantize_ops(torch.arange(256, dtype=torch.uint8, device=device), inv0)
+    rand_lut = torch.from_numpy(rng.integers(-128, 128, 256).astype(np.int8)).to(device)
+    tiles8 = stage_for_fcn(slide, tile=FCN_TILE, halo=FCN_HALO, pack=8, pre_tile=True,
+                           device=device).tiles
+    packed4 = stage_for_fcn(slide, tile=FCN_TILE, halo=FCN_HALO, pack=4, device=device).packed
+    ps8, ps4 = (FCN_TILE + 2 * FCN_HALO) // 8, (FCN_TILE + 2 * FCN_HALO) // 4
+    tx = -(-w // FCN_TILE)
+    # timed batches, in turn, so a call does not find its input in L2
+    n_exact, n_fcn = min(16, len(dense) // BS), min(8, tiles8.shape[0] // FCN_TB)
+
+    def tile_batch(step):
+        t = np.arange(step * FCN_TB, (step + 1) * FCN_TB)
+        return t.astype(np.int32), (np.stack([t // tx, t % tx], 1) * (FCN_TILE // 4)).astype(np.int32)
+
+    zeros = np.zeros((FCN_TB, 2), np.int32)
+    one = np.zeros(BS, np.int32)
+    cases = {  # name: (bank, slide idx, coords of the timed batches, ps, layout, parent)
+        "exact_s2d4": (slide[None], [one] * n_exact,
+                       [dense[i * BS:(i + 1) * BS].numpy() for i in range(n_exact)], PS, "s2d4",
+                       lambda b, s, c: s2d_pack4(quantize_ops(gather_multi_u8(b, s, c, PS), inv0))
+                       .contiguous()),
+        "fcn_headline_s2d8_to_s2d4": (
+            tiles8, [tile_batch(i)[0] for i in range(n_fcn)], [zeros] * n_fcn, ps8, "s2d8_to_s2d4",
+            lambda b, s, c: unpack_s2d8(quantize_ops(b[torch.from_numpy(s).to(device).long()], inv0))
+            .contiguous()),
+        "fcn_pack4_hwc": (
+            packed4[None], [np.zeros(FCN_TB, np.int32)] * n_fcn,
+            [tile_batch(i)[1] for i in range(n_fcn)], ps4, "hwc",
+            lambda b, s, c: quantize_ops(torch.stack([b[0, y:y + ps4, x:x + ps4] for y, x in c.tolist()]),
+                                         inv0)),
+    }
+    packed_slide = stage_packed_slide(slide, keep_raw=False, device=device).packed
+    checks = [(b, s[0], c[0], ps, lay) for b, s, c, ps, lay, _ in cases.values()]
+    checks.append((packed_slide[None], one, dense[:BS].numpy() // 4, PS // 4, "hwc"))
+    out = {}
+    for bank, sidx, coords, ps, layout in checks:
+        # odd, clamped and negative starts on the first windows
+        coords = coords.copy()
+        n, (sh, sw) = len(coords), bank.shape[1:3]
+        edge = [(sh - ps, sw - ps), (1, 3), (5, sw - 1), (-1, -2), (sh, -sw - 7), (2, 1)]
+        k = min(n, len(edge))
+        coords[:k] = edge[:k]
+        sidx = sidx.copy()
+        sidx[:2] = [-1, bank.shape[0]]
+        for table in (lut, rand_lut):
+            got = gather_quantize_int8(bank, sidx, coords, ps, table, layout)
+            again = gather_quantize_int8(bank, sidx, coords, ps, table, layout)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1's int8 mode is not deterministic ({layout}, ps {ps})")
+            if not torch.equal(got, gather_quantize_int8_ref(bank, sidx, coords, ps, table, layout)):
+                raise AssertionError(f"K1's int8 mode differs from its plain version ({layout}, "
+                                     f"bank {tuple(bank.shape)}, ps {ps})")
+        print(f"K1 gather_quantize_int8 [{layout}]: bit-equal to the plain version at N={n}, "
+              f"window {ps}, bank {tuple(bank.shape)} (odd, clamped and negative starts; the "
+              "model's table and a random one), two runs identical")
+    for name, (bank, sidxs, coordss, ps, layout, parent) in cases.items():
+        m = len(coordss)
+        batches = [(torch.from_numpy(s).to(device), torch.from_numpy(c).to(device))
+                   for s, c in zip(sidxs, coordss)]
+        if not torch.equal(gather_quantize_int8(bank, *batches[0], ps, lut, layout),
+                           parent(bank, sidxs[0], coordss[0])):
+            raise AssertionError(f"K1's int8 mode differs from the parent's composition ({name})")
+        ms = cuda_ms(lambda i: gather_quantize_int8(bank, *batches[i % m], ps, lut, layout), 4 * m)
+        plain_ms = cuda_ms(
+            lambda i: gather_quantize_int8_ref(bank, *batches[i % m], ps, lut, layout), m)
+        parent_ms = cuda_ms(lambda i: parent(bank, sidxs[i % m], coordss[i % m]), 2 * m)
+        c = bank.shape[3]
+        if layout == "s2d8_to_s2d4":  # whole tiles, no overlap
+            read = [FCN_TB * ps * ps * c] * m
+        else:  # the bytes under the union of the batch's windows
+            read = [covered_pixels(cc, ps) * c for cc in coordss]
+        nbytes = np.mean(read) + len(coordss[0]) * (ps * ps * c + 12) + 256
+        out[name] = {"layout": layout, "ms": ms, "plain_ms": plain_ms, "parent_ms": parent_ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "windows": len(coordss[0]),
+                     "window": ps, "bank": list(bank.shape)}
+        print(f"K1 gather_quantize_int8 [{name}]: {ms:.4f} ms against its byte bound "
+              f"{out[name]['bound_ms']:.4f} ms; the parent's composition {parent_ms:.4f} ms; "
+              f"plain {plain_ms:.4f} ms")
+    del tiles8, packed4, packed_slide
+    main = out["exact_s2d4"]
+    return {
+        "name": "gather_quantize_int8", "route": "cuda",
+        "source": "deephisto_tpu_torch/csrc/gather.cu",
+        "replaces": "deephisto_tpu/experimental/pallas_gather.py:152 (the gather, as "
+                    "gather_patches_multi_xla, deephisto_tpu/ops/gather.py:59) with the input "
+                    "quantize of deephisto_tpu/models/quantize.py:493-496 and the s2d stem's pack "
+                    "fused in",
+        "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "parent_composition_ms": main["parent_ms"],
+        "note": "ms, plain_ms and bound_ms: one exact int8 batch (s2d4); by_layout has the fcn "
+                "steps", "by_layout": out,
     }
 
 
@@ -606,6 +772,7 @@ def plain_predict(image, model):
 
 
 KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
+    ("gather_quantize_int8", "K1 gather_quantize_int8"),
     ("gather_normalize", "K1 gather_normalize"), ("scatter_add_map", "K2 scatter_add_map"),
     ("gather_multi_u8", "K1 gather_multi_u8"), ("conv_int8", "K6 conv_int8"),
     ("flash_fwd", "K3 flash_attention"),
@@ -615,7 +782,8 @@ KERNEL_GROUPS = (  # lower-case kernel-name substring -> group, first match wins
     ("fprop", "convolution"), ("conv", "convolution"), ("max_pool", "max pool"),
     ("gemm", "GEMM (Dense)"), ("nvjet", "GEMM (Dense)"), ("cutlass", "GEMM (Dense)"),
     ("dgrad", "convolution backward"), ("wgrad", "convolution backward"),
-    ("xmma", "GEMM (Dense)"), ("clamp", "relu"), ("copy", "dtype casts / copies"),
+    ("xmma", "GEMM (Dense)"), ("clamp", "relu / clamp"), ("round_kernel", "round"),
+    ("copy", "dtype casts / copies"),
     ("add", "residual / bias add"), ("reduce", "mean / argmax"), ("fill", "fill / memset"),
     ("memset", "fill / memset"),
 )
@@ -1069,6 +1237,90 @@ def int8_vs_plain(fn, label):
         raise AssertionError(f"{label} disagrees with its plain-K6 composition")
 
 
+class ParentInput:
+    """Within ``with``: both int8 predicts take their input as the parent
+    did: K1's uint8 gather, then ``model.quantize_input`` and the stem's
+    pack as torch ops, in place of K1's int8 mode (the pre-tiled fcn
+    staging's tile copy is the same gather of whole tiles)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __enter__(self):
+        from deephisto_tpu_torch.ops import gather_multi_u8, s2d_pack4, unpack_s2d8
+        from deephisto_tpu_torch.predict import fcn, pipeline
+
+        def parent(images, slide_idx, coords, ps, lut, layout):
+            x8 = self.model.quantize_input(gather_multi_u8(images, slide_idx, coords, ps))
+            if layout == "s2d4":
+                x8 = s2d_pack4(x8)
+            elif layout == "s2d8_to_s2d4":
+                x8 = unpack_s2d8(x8)
+            return x8.contiguous()
+
+        self._saved = pipeline.gather_quantize_int8, fcn.gather_quantize_int8
+        pipeline.gather_quantize_int8 = fcn.gather_quantize_int8 = parent
+        return self
+
+    def __exit__(self, *exc):
+        from deephisto_tpu_torch.predict import fcn, pipeline
+
+        pipeline.gather_quantize_int8, fcn.gather_quantize_int8 = self._saved
+
+
+def parent_input_ab(fn, model, out, prof, n_units, label, n_equiv) -> dict:
+    """``fn()`` (an int8 predict whose output was ``out`` and profile
+    ``prof``) with the parent's input path (:class:`ParentInput`): the same
+    map and the same scores bit for bit; and, per batch or tile step
+    (``n_units`` a predict), no round and no clamp launched in ``prof`` and
+    at least two casts / copies fewer than the parent's path launches."""
+    with ParentInput(model):
+        _, _, _, best_s, _, (pmap, pscore) = run_timed(
+            fn, f"{label}, the parent's input path", MAIN_SIDE, runs=2)
+        pprof = profile_device(fn)
+    if not (np.array_equal(pmap, out[0]) and torch.equal(pscore, out[1])):
+        raise AssertionError(f"the {label} differs from the parent's input path")
+    groups = ("round", "relu / clamp", "dtype casts / copies")
+    per_unit = {g: {"int8_mode": prof["group_launches"].get(g, 0) / n_units,
+                    "parent_input": pprof["group_launches"].get(g, 0) / n_units} for g in groups}
+    print(f"{label} vs the parent's input path: map and scores bit-equal; launches per batch or "
+          f"step {json.dumps(per_unit)}; patches/s (best of 2) {n_equiv / best_s:.1f} with the "
+          "parent's input path")
+    if (per_unit["round"]["int8_mode"] > 0 or per_unit["relu / clamp"]["int8_mode"] >= 1
+            or per_unit["dtype casts / copies"]["int8_mode"]
+            > per_unit["dtype casts / copies"]["parent_input"] - 2):
+        raise AssertionError(f"the {label} still casts, rounds or clamps its input per batch: "
+                             f"{per_unit}")
+    return {"patches_per_s": n_equiv / best_s, "best_s": best_s, "launches_per_unit": per_unit,
+            "profile": pprof}
+
+
+def time_b6(device) -> dict:
+    """B6, left to torch ops: the 7×7 window pool (``_avg_pool_f32``) and
+    the window ensemble (``_window_ensemble``) of one fcn predict at the
+    16384² slide's shapes (a (512, 512, 5) f32 logit map, (506, 506, 5)
+    window logits, a (1024, 1024) map), each timed beside its byte bound
+    (inputs read once, outputs written once), with its kernel launches."""
+    from deephisto_tpu_torch.predict import fcn
+
+    ft, t = FCN_TILE // 32, -(-MAIN_SIDE // FCN_TILE)
+    wf, up, k, m = PS // 32, 32 // D, (MAIN_SIDE - PS) // 32 + 1, MAIN_SIDE // D
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    logit_map = torch.randn((t * ft, t * ft, N_CLASSES), device=device, generator=gen)
+    wlog = fcn._avg_pool_f32(logit_map, wf)[:k, :k].contiguous()
+    calls = {"avg_pool_f32": (lambda i: fcn._avg_pool_f32(logit_map, wf),
+                              logit_map.numel() * 4 + k * k * N_CLASSES * 4),
+             "window_ensemble": (lambda i: fcn._window_ensemble(wlog, wf, up, k, k, m, m),
+                                 wlog.numel() * 4 + m * m * (N_CLASSES * 4 + 1))}
+    out = {}
+    for name, (fn, nbytes) in calls.items():
+        prof = profile_device(lambda: fn(0))
+        out[name] = {"ms": cuda_ms(fn, 20), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "launches": sum(prof["group_launches"].values())}
+    print(f"B6 (torch ops) of one {MAIN_SIDE}^2 fcn predict: {json.dumps(out)}")
+    return out
+
+
 def qkv_split_ab(one, state, gen) -> dict:
     """One vit2p8 train step (``one``, an epoch of one step) profiled and
     timed with the qkv gradient taken from K5/K4's buffer as it is
@@ -1138,8 +1390,8 @@ def main() -> int:
     # 3. kernels vs plain at the main path's shapes
     slide = seeded_slide(device)
     dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
-    kernels = [check_k1(slide, dense), check_k1_multi(device), check_k2(dense, device),
-               check_k3(device), *check_k45(device)]
+    kernels = [check_k1(slide, dense), check_k1_multi(device), check_k1_int8(slide, dense, device),
+               check_k2(dense, device), check_k3(device), *check_k45(device)]
     for k in kernels:
         k["launches"] = 0
         k["launches_by_path"] = {}
@@ -1256,7 +1508,7 @@ def main() -> int:
     # 11. the int8 ResNet-18 (s2d stem): quantize, stage the fcn headline,
     # record one batch's convs on each path and hold K6 against its plain
     # version on them
-    from deephisto_tpu_torch.ops import gather_multi_u8
+    from deephisto_tpu_torch.ops import gather_quantize_int8
     from deephisto_tpu_torch.predict import (
         fcn_equivalent_patches,
         predict_full_fcn,
@@ -1277,11 +1529,16 @@ def main() -> int:
 
     def record_k6_calls() -> dict:
         """The K6 calls of one exact batch and of one fcn tile batch, by path."""
+        lut = qexact.input_lut
         with RecordConvs() as exact_rec, torch.inference_mode():
-            qexact(gather_multi_u8(slide[None], slide0, dense[:BS], PS))
+            qexact(gather_quantize_int8(slide[None], slide0, dense[:BS], PS, lut, "s2d4"),
+                   pre_packed=True)
         with RecordConvs() as fcn_rec, torch.inference_mode():
-            tile_logits(qpack, staged.tiles[:FCN_TB], FCN_HALO // 32, FCN_TILE // 32,
-                        qpack.fc_kernel, pre_packed="s2d8")
+            tiles = gather_quantize_int8(staged.tiles, torch.arange(FCN_TB, dtype=torch.int32),
+                                         torch.zeros((FCN_TB, 2), dtype=torch.int32),
+                                         staged.tiles.shape[1], lut, "s2d8_to_s2d4")
+            tile_logits(qpack, tiles, FCN_HALO // 32, FCN_TILE // 32, qpack.fc_kernel,
+                        pre_packed=True)
         return {"exact_int8_batch": exact_rec.calls,
                 f"fcn_tile_batch_{FCN_TB}x{FCN_TILE + 2 * FCN_HALO}": fcn_rec.calls}
 
@@ -1294,8 +1551,8 @@ def main() -> int:
     launches, runs, warm_s, best_s, peak_gib, exact_map = run_timed(
         lambda: predict_full_fused(slide, qexact, N_CLASSES),
         f"exact int8 predict, {MAIN_SIDE}^2, ResNet-18 s2d int8, batch {BS}", MAIN_SIDE)
-    exact_map = exact_map[0]
-    for name in ("gather_multi_u8", "conv_int8", "scatter_add_map"):
+    exact_map, exact_score = exact_map
+    for name in ("gather_quantize_int8", "conv_int8", "scatter_add_map"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"the exact int8 path never launched {name}")
     for k in kernels:
@@ -1308,6 +1565,13 @@ def main() -> int:
           f"predict; classes present {np.bincount(exact_map.ravel(), minlength=N_CLASSES).tolist()}")
     fused_prof = profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))
     print(f"profile of one {MAIN_SIDE}^2 exact int8 predict: " + json.dumps(fused_prof))
+    n_batches = -(-n_patches // BS)
+    # the parent's input path (K1's uint8 gather, then the input quantize
+    # and the s2d pack as torch ops): the same map and scores, and the
+    # launches a batch it adds
+    exact_int8["parent_input"] = parent_input_ab(
+        lambda: predict_full_fused(slide, qexact, N_CLASSES), qexact, (exact_map, exact_score),
+        fused_prof, n_batches, "exact int8 predict", n_patches)
     # the same predict with each block's epilogue as torch ops after K6's
     # f32 mode (the unfused composition): the same map, and the
     # torch launches the fused epilogue removes, by group
@@ -1318,7 +1582,6 @@ def main() -> int:
         unfused_prof = profile_device(lambda: predict_full_fused(slide, qexact, N_CLASSES))
     if not np.array_equal(unfused_out[0], exact_map):
         raise AssertionError("the exact int8 map differs with the block epilogue as torch ops")
-    n_batches = -(-n_patches // BS)
     per_batch = {g: {"fused": fused_prof["group_launches"].get(g, 0) / n_batches,
                      "unfused": unfused_prof["group_launches"].get(g, 0) / n_batches}
                  for g in sorted(set(fused_prof["group_launches"])
@@ -1329,19 +1592,7 @@ def main() -> int:
           f"{json.dumps(per_batch)}; patches/s {n_patches / best_s:.1f} vs "
           f"{n_patches / unfused_s:.1f}")
     n_blocks = sum(qexact.stage_sizes)
-    # B4, left to torch ops: the input quantize and the s2d pack of one batch,
-    # each beside its byte bound (int8 or uint8 read once, int8 written once)
-    from deephisto_tpu_torch.models.quantize import s2d_pack4
-
-    u8 = gather_multi_u8(slide[None], slide0, dense[:BS], PS)
-    x8 = qexact.quantize_input(u8)
-    b4 = {"quantize_ms": cuda_ms(lambda i: qexact.quantize_input(u8), 10),
-          "s2d_pack_ms": cuda_ms(lambda i: s2d_pack4(x8).contiguous(), 10),
-          "bound_ms_each": 2 * u8.numel() / HBM_BYTES_PER_S * 1e3}
-    exact_int8["b4_per_batch"] = b4
-    print(f"B4 on one exact batch (torch ops): {json.dumps(b4)}")
-    del u8, x8
-    for g in ("residual / bias add", "relu", "dtype casts / copies"):
+    for g in ("residual / bias add", "relu / clamp", "dtype casts / copies"):
         if per_batch.get(g, {"fused": 0})["fused"] >= n_blocks:
             raise AssertionError(f"the fused exact int8 predict still launches {g} kernels per "
                                  f"residual block: {per_batch[g]}")
@@ -1366,14 +1617,24 @@ def main() -> int:
         return launches, runs, row
 
     launches, runs, headline = fcn_row("fcn_int8_pack8_staged (headline)", staged, qpack, stage_s)
-    if launches.get("conv_int8", 0) == 0:
-        raise AssertionError("the fcn path never launched conv_int8")
+    for name in ("gather_quantize_int8", "conv_int8"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"the fcn path never launched {name}")
     for k in kernels:
         k["launches"] += launches.get(k["name"], 0)
         k["launches_by_path"]["fcn_int8_16384"] = launches.get(k["name"], 0) / runs
-    print(f"profile of one {MAIN_SIDE}^2 fcn predict (headline): " + json.dumps(profile_device(
-        lambda: predict_full_fcn(staged, qpack, N_CLASSES, tile=FCN_TILE, halo=FCN_HALO,
-                                 tile_batch=FCN_TB))))
+
+    def headline_fn():
+        return predict_full_fcn(staged, qpack, N_CLASSES, tile=FCN_TILE, halo=FCN_HALO,
+                                tile_batch=FCN_TB)
+
+    headline_prof = profile_device(headline_fn)
+    print(f"profile of one {MAIN_SIDE}^2 fcn predict (headline): " + json.dumps(headline_prof))
+    headline_out = headline_fn()
+    headline["parent_input"] = parent_input_ab(
+        headline_fn, qpack, headline_out, headline_prof, -(-staged.tiles.shape[0] // FCN_TB),
+        "fcn headline predict", n_equiv)
+    headline["b6"] = time_b6(device)
     # K6's designs end to end, in turns: every conv on the mma.sync kernel
     # against the chooser's wgmma kernel at Cin % 64 == 0
     ab = design_ab(record_k6_calls(), {
@@ -1389,7 +1650,11 @@ def main() -> int:
     torch.cuda.synchronize()
     stage4_s = time.perf_counter() - t0
     rows = {"fcn_int8_pack8_staged": headline}
-    rows["fcn_int8_pack4_staged"] = fcn_row("fcn_int8_pack4_staged", staged4, qpack, stage4_s)[2]
+    launches, runs, rows["fcn_int8_pack4_staged"] = fcn_row("fcn_int8_pack4_staged", staged4, qpack,
+                                                            stage4_s)
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+        k["launches_by_path"]["fcn_int8_pack4_16384"] = launches.get(k["name"], 0) / runs
     rows["fcn_bf16_staged"] = fcn_row("fcn_bf16_staged", staged4, r18, stage4_s)[2]
     del staged4
     crop_staged = stage_for_fcn(crop, tile=FCN_TILE, halo=FCN_HALO, pack=8, pre_tile=True)

@@ -37,6 +37,40 @@
 // written (a training batch of 256 windows of 256² RGB: 2 x 50.3 MB, 30 us at
 // 3.35 TB/s). Same grid as above; a thread packs 4 neighbouring bytes of a
 // row into one 4-byte store.
+//
+// int8 mode (dh_gather_quantize_int8), the input of both int8 predicts: the
+// multi-slide gather, each byte u replaced by lut[u] (int8), written in the
+// layout the int8 ResNet's stem takes. It fuses what the JAX package runs
+// after its gather, the input quantize of QuantizedResNet
+// (deephisto_tpu/models/quantize.py:493-496, round(u8 * inv0/255) clipped to
+// +-127: the wrapper's table holds its 256 values) and the s2d stem's pack
+// (the stem's 4x4 space-to-depth, or the fcn staging's 8x8 form taken back to
+// 4x4). Layouts:
+//   hwc           the window as it is, (ps, ps, C);
+//   s2d4          (ps/4, ps/4, 16C), channel (ry*4 + rx)*C + c;
+//   s2d8_to_s2d4  a (t, t, 192) "s2d8" window, channel (si*2 + sj)*48 + c4,
+//                 as (2t, 2t, 48): output row 2i + si takes from each cell
+//                 of row i its 96 bytes at si*96.
+// Bound: bytes. The slide bytes under the union of the windows read once, the
+// int8 output written once: an exact batch (256 windows of 224² RGB at stride
+// 112) reads ~15 MB and writes 38.5 MB, 16 us at 3.35 TB/s; an fcn step (16
+// tiles of 144² x 192) moves 2 x 63.7 MB, 38 us.
+// Design: a block takes a window and a few groups of output rows in turn
+// (a group: 1 output row; 2 for s2d8_to_s2d4, from one input row). A
+// group's input rows (1; 4 for s2d4) are read as aligned 16-byte chunks, so
+// a window that starts at any byte is read at full width (a 16-byte aligned
+// chunk that holds one byte of the row lies in pages the slide's allocation
+// owns), shifted by the row's offset in its first chunk with funnel shifts,
+// and stored in shared memory from offset 0. Each thread then writes 16
+// consecutive output bytes with one 16-byte store. It reads their source
+// as one 16-byte word (hwc; s2d8_to_s2d4, whose 96-byte runs are whole
+// chunks) or as four 4-byte words (s2d4: a cell's 16C bytes are 4C-byte
+// pieces of the 4 input rows, C words each), so no read is byte-wide, and
+// looks each byte up in the table. The table sits in shared memory with one
+// copy per lane (value u of lane l at byte 32u + l, 8 KB): random bytes then
+// meet in a bank only within a quad of lanes. A block sets it up once for
+// its groups; the launch gives each block enough groups to keep about 4096
+// blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -150,6 +184,163 @@ __global__ void __launch_bounds__(kThreads) gather_multi_u8_kernel(
   }
 }
 
+enum Int8Layout { kHwc = 0, kS2d4 = 1, kS2d8To4 = 2 };  // ops/gather.py INT8_LAYOUTS
+
+template <int LAYOUT> struct LayoutRows { static constexpr int value = 1; };
+template <> struct LayoutRows<kS2d4> { static constexpr int value = 4; };
+
+constexpr int kTableBytes = 256 * 32;  // the table, one byte per (value, lane)
+constexpr int kInt8Blocks = 4096;      // blocks to aim for: output row groups a block takes in turn
+
+// Bytes [head, head + 16) of the 32 bytes a ++ b.
+__device__ __forceinline__ uint4 shift_bytes(uint4 a, uint4 b, int head) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = head >> 2;
+  const uint32_t bits = (head & 3) * 8;
+  uint32_t o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t lo = q == 0 ? w[j] : q == 1 ? w[j + 1] : q == 2 ? w[j + 2] : w[j + 3];
+    const uint32_t hi = q == 0 ? w[j + 1] : q == 1 ? w[j + 2] : q == 2 ? w[j + 3] : w[j + 4];
+    o[j] = __funnelshift_r(lo, hi, bits);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The table's values of the 4 bytes of `word`, packed as they were. Lane l
+// reads value u at byte u * 32 + l: lanes of different quads never meet in
+// a bank, so random bytes cost few conflicts.
+__device__ __forceinline__ uint32_t look_up(const uint8_t* table, uint32_t word, int lane) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out |= uint32_t(table[(((word >> (8 * k)) & 255u) << 5) | lane]) << (8 * k);
+  return out;
+}
+
+// out[n, group g] = lut[bank[...]] in LAYOUT; grid (n, ceil(groups / per_block)):
+// groups = ps (hwc, s2d8_to_s2d4) or ps / 4 (s2d4), each block taking
+// per_block of them in turn. A group's output is R * len bytes, len = ps *
+// channels, contiguous in `out`.
+template <int LAYOUT>
+__global__ void __launch_bounds__(kThreads) gather_quantize_int8_kernel(
+    const uint8_t* __restrict__ bank, int slides, int height, int width, int channels,
+    const int32_t* __restrict__ slide_idx, const int32_t* __restrict__ coords, int ps,
+    const int8_t* __restrict__ lut, int per_block, int8_t* __restrict__ out) {
+  constexpr int R = LayoutRows<LAYOUT>::value;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* table = smem;
+  uint8_t* rows = smem + kTableBytes;  // R staged rows, each from offset 0, pitch bytes apart
+  const int len = ps * channels;
+  const int pitch = (len + 15) & ~15;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < kTableBytes / 4; i += kThreads)
+    reinterpret_cast<uint32_t*>(table)[i] = uint32_t(uint8_t(lut[i >> 3])) * 0x01010101u;
+
+  const int64_t n = blockIdx.x;
+  const int groups = LAYOUT == kS2d4 ? ps / 4 : ps;
+  const int s = dynamic_slice_start(slide_idx[n], slides, 1);
+  const int y = dynamic_slice_start(coords[2 * n], height, ps);
+  const int x = dynamic_slice_start(coords[2 * n + 1], width, ps);
+  const int64_t row_bytes = int64_t(width) * channels;
+  const int out_len = R * len;
+  const int g0 = int(blockIdx.y) * per_block;
+  const int g_end = min(groups, g0 + per_block);
+  for (int g = g0; g < g_end; ++g) {
+    // stage the group's input rows, realigned: the row's first byte at the
+    // start of its shared row, read as aligned 16-byte chunks
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int iy = y + (LAYOUT == kS2d4 ? 4 * g + r : g);
+      const uintptr_t src = reinterpret_cast<uintptr_t>(
+          bank + (int64_t(s) * height + iy) * row_bytes + int64_t(x) * channels);
+      const uint4* chunk = reinterpret_cast<const uint4*>(src & ~uintptr_t(15));
+      const int head = int(src & 15);
+      const int chunks = (head + len + 15) >> 4;  // the aligned chunks that hold the row
+      uint4* staged = reinterpret_cast<uint4*>(rows + r * pitch);
+      for (int c = threadIdx.x; c < pitch / 16; c += kThreads) {
+        const uint4 a = __ldg(chunk + c);
+        const uint4 b = head != 0 && c + 1 < chunks ? __ldg(chunk + c + 1) : make_uint4(0, 0, 0, 0);
+        staged[c] = head != 0 ? shift_bytes(a, b, head) : a;
+      }
+    }
+    __syncthreads();
+
+    int8_t* dst = out + (n * groups + g) * int64_t(out_len);
+    const bool vec = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+    for (int o0 = threadIdx.x * 16; o0 < out_len; o0 += kThreads * 16) {
+      uint4 v;
+      if (LAYOUT == kS2d4) {
+        // a 16-byte chunk lies in one cell (16C bytes: 4C words): word w
+        // of the cell is word w % C of the cell's piece of input row w / C
+        const int cell = o0 / (16 * channels);
+        int w = (o0 - cell * 16 * channels) / 4;
+        int r = w / channels, k = w - r * channels;
+        uint32_t word[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          word[j] = reinterpret_cast<const uint32_t*>(rows + r * pitch)[cell * channels + k];
+          if (++k == channels) {
+            k = 0;
+            ++r;
+          }
+        }
+        v = make_uint4(word[0], word[1], word[2], word[3]);
+      } else {
+        int src = o0;  // hwc: the window row as it is
+        if (LAYOUT == kS2d8To4) {
+          // output rows 2i, 2i+1 from source row i; 96 = channels / 2 is a
+          // multiple of 16, so the 16 bytes are one aligned run
+          const int half = channels / 2;
+          const int si = o0 / (ps * half);
+          const int oo = o0 - si * ps * half;
+          const int j = oo / half;
+          src = j * channels + si * half + (oo - j * half);
+        }
+        v = *reinterpret_cast<const uint4*>(rows + src);
+      }
+      v = make_uint4(look_up(table, v.x, lane), look_up(table, v.y, lane),
+                     look_up(table, v.z, lane), look_up(table, v.w, lane));
+      const int count = min(16, out_len - o0);
+      if (vec && count == 16) {
+        *reinterpret_cast<uint4*>(dst + o0) = v;
+      } else {
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        for (int b = 0; b < count; ++b) dst[o0 + b] = int8_t(w[b >> 2] >> (8 * (b & 3)));
+      }
+    }
+    __syncthreads();  // the rows are restaged for the next group
+  }
+}
+
+// Dynamic shared memory of one block of the int8 mode: the table and R
+// staged rows.
+int int8_smem_bytes(int layout, int len) {
+  return kTableBytes + (layout == kS2d4 ? 4 : 1) * ((len + 15) & ~15);
+}
+
+template <int LAYOUT>
+cudaError_t launch_int8(const void* bank, int slides, int height, int width, int channels,
+                        const void* slide_idx, const void* coords, int n, int ps,
+                        const void* lut, void* out, cudaStream_t stream) {
+  const int smem = int8_smem_bytes(LAYOUT, ps * channels);
+  auto kernel = gather_quantize_int8_kernel<LAYOUT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  // as many row groups a block as keeps about kInt8Blocks blocks, so the
+  // table's set-up is paid once for several groups
+  const int groups = LAYOUT == kS2d4 ? ps / 4 : ps;
+  const int per_block = max(1, min(groups, int(int64_t(n) * groups / kInt8Blocks)));
+  const dim3 grid(n, (groups + per_block - 1) / per_block);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(bank), slides, height, width, channels,
+      static_cast<const int32_t*>(slide_idx), static_cast<const int32_t*>(coords), ps,
+      static_cast<const int8_t*>(lut), per_block, static_cast<int8_t*>(out));
+  return cudaGetLastError();
+}
+
 // Makes `device` current for one call and gives the caller's device back.
 struct DeviceGuard {
   int prev = 0;
@@ -208,6 +399,39 @@ extern "C" int dh_gather_multi_u8(int device, const void* bank, int slides, int 
         static_cast<uint8_t*>(out));
   }
   return cudaGetLastError();
+}
+
+// bank: (slides, height, width, channels) u8, contiguous; slide_idx: (n,)
+// int32; coords: (n, 2) int32 (y, x), clamped as lax.dynamic_slice clamps
+// them; lut: 256 int8; layout: an Int8Layout; out: int8, (n, ps, ps,
+// channels) for hwc, (n, ps/4, ps/4, 16*channels) for s2d4 (ps % 4 == 0),
+// (n, 2ps, 2ps, channels/4) for s2d8_to_s2d4 (channels == 192). ps <= height
+// and ps <= width (the wrapper checks).
+extern "C" int dh_gather_quantize_int8(int device, const void* bank, int slides, int height,
+                                       int width, int channels, const void* slide_idx,
+                                       const void* coords, int n, int ps, const void* lut,
+                                       int layout, void* out, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  if ((layout == kS2d4 && ps % 4 != 0) || (layout == kS2d8To4 && channels != 192) ||
+      int8_smem_bytes(layout, ps * channels) > 227 * 1024 - 64) {
+    return cudaErrorInvalidValue;
+  }
+  if (n <= 0 || ps <= 0) return cudaGetLastError();
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (layout) {
+    case kHwc:
+      return launch_int8<kHwc>(bank, slides, height, width, channels, slide_idx, coords, n, ps,
+                               lut, out, s);
+    case kS2d4:
+      return launch_int8<kS2d4>(bank, slides, height, width, channels, slide_idx, coords, n, ps,
+                                lut, out, s);
+    case kS2d8To4:
+      return launch_int8<kS2d8To4>(bank, slides, height, width, channels, slide_idx, coords, n,
+                                   ps, lut, out, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* dh_error_string(int err) {

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_int8 import conv_f32, conv_int8_block, conv_to_int8, quant_to
+from ..ops.gather import s2d_pack4, unpack_s2d8
 from .resnet import BasicBlock, ResNet, same_pads
 
 EPS = 1e-5  # BatchNorm epsilon (resnet.py BatchNorm)
@@ -130,23 +131,6 @@ def _trunk(model, x, conv_apply, add_relu):
             residual = conv_apply(f"{name}/downsample_conv", x, stride, False)
         x = add_relu(residual, y)
     return x
-
-
-def s2d_pack4(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) → the 4×4 space-to-depth form (B, H/4, W/4, 16C),
-    channel (ry·4 + rx)·C + c, as the s2d stem packs its input."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // 4, 4, w // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h // 4, w // 4, 16 * c)
-
-
-def unpack_s2d8(x: torch.Tensor) -> torch.Tensor:
-    """(B, H/8, W/8, 4·48) "s2d8" input, channel (si·2 + sj)·48 + c4 → the
-    4×4 form (B, H/4, W/4, 48): one reshape (the math of the JAX package's
-    ``pre_packed="s2d8"``, not its layout)."""
-    b, h8, w8, c = x.shape
-    x = x.reshape(b, h8, w8, 2, 2, c // 4).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, 2 * h8, 2 * w8, c // 4)
 
 
 def max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -260,7 +244,11 @@ class QuantizedResNet(nn.Module):
     block input; True keeps the trunk int8 and adds the dequantized int8.
 
     ``wants_uint8``: the predicts hand it raw uint8 patches, whose /255
-    folds into conv1's input scale."""
+    folds into conv1's input scale. ``input_lut`` holds the 256 int8 values
+    of :meth:`quantize_input` on the bytes 0..255, formed once: the predicts
+    gather int8 patches through it in K1's int8 mode
+    (``ops/gather.py:gather_quantize_int8``) and hand them over quantized,
+    in the layout :meth:`input_layout` names."""
 
     wants_uint8 = True
 
@@ -282,6 +270,10 @@ class QuantizedResNet(nn.Module):
         })
         for name, nxt in self._requant_edges():
             self.q(name).requant_to(self.q(nxt))
+        # the input quantize of every byte value, as quantize_input runs it
+        inv0 = self.q("conv1").in_inv_scale
+        self.register_buffer("input_lut", self.quantize_input(
+            torch.arange(256, dtype=torch.uint8, device=inv0.device)), persistent=False)
         # copies: the folded fc may share storage with the float model's
         for name, key in (("fc_kernel", "kernel"), ("fc_bias", "bias")):
             self.register_buffer(name, qparams["fc"][key].to(
@@ -333,6 +325,19 @@ class QuantizedResNet(nn.Module):
         inv0 = self.q("conv1").in_inv_scale.to(x.device)
         scale = inv0 / 255.0 if x.dtype == torch.uint8 else inv0
         return torch.clamp(torch.round(x.float() * scale), -127, 127).to(torch.int8)
+
+    def input_layout(self, packed: bool | str = False) -> tuple[str, bool | str]:
+        """(K1 int8 layout, ``pre_packed`` for :meth:`forward`) of a batch of
+        windows gathered from a raw slide (``packed=False``), a 4×4 packed
+        one (True) or an "s2d8" one ("s2d8"): the s2d stem takes the 4×4
+        form, so every int8 batch reaches it packed."""
+        if packed and self.stem != "s2d":
+            raise ValueError("packed input requires the s2d stem")
+        if packed == "s2d8":
+            return "s2d8_to_s2d4", True
+        if packed:
+            return "hwc", True
+        return ("s2d4", True) if self.stem == "s2d" else ("hwc", False)
 
     @torch.no_grad()
     def forward(self, x, features: bool = False, pre_packed: bool | str = False,

@@ -1,4 +1,5 @@
-"""Device ops: patch gather (kernel K1, with its multi-slide uint8 mode),
+"""Device ops: patch gather (kernel K1, with its multi-slide uint8 mode and
+its int8 mode, the int8 model's input quantize and stem layout fused in),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
 and the int8 convolution with its epilogue, the ResNet block's among its
 modes (kernel K6)."""
@@ -25,7 +26,11 @@ from .gather import (
     gather_normalize_ref,
     gather_patches,
     gather_patches_multi,
+    gather_quantize_int8,
+    gather_quantize_int8_ref,
+    s2d_pack4,
     u8_table,
+    unpack_s2d8,
 )
 from .stitch import (
     coverage_footprint,
@@ -53,9 +58,13 @@ __all__ = [
     "gather_normalize_ref",
     "gather_patches",
     "gather_patches_multi",
+    "gather_quantize_int8",
+    "gather_quantize_int8_ref",
     "map_footprint",
     "scatter_add_map",
     "scatter_add_map_exact",
     "scatter_add_map_ref",
+    "s2d_pack4",
     "u8_table",
+    "unpack_s2d8",
 ]

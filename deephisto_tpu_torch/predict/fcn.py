@@ -14,9 +14,10 @@ documented non-exact mode next to the exact stride-112 path; its
 
 The JAX package runs one jitted program with a ``lax.scan`` over tile
 batches; here a Python loop launches, per step of ``tile_batch`` tiles, the
-tile gather, the backbone (the int8 ResNet's convs are kernel K6), the
-halo crop and the fc projection, all queued on the current stream; the host
-reads back only the final argmax map. The window pool and the ensemble
+tile gather (for the int8 ResNet K1's int8 mode, which quantizes the tiles
+and writes them in its stem's layout), the backbone (the int8 ResNet's
+convs are kernel K6), the halo crop and the fc projection, all queued on
+the current stream; the host reads back only the final argmax map. The window pool and the ensemble
 (B6) are torch ops. ``scan_unroll`` and ``scan_prefetch`` are accepted and
 change nothing: the JAX package measured both neutral and bit-identical.
 """
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.quantize import s2d_pack4
+from ..ops.gather import gather_quantize_int8, s2d_pack4
 from .pipeline import dense_coords, edge_pad, model_device, model_input
 
 FEATURE_STRIDE = 32  # ResNet total stride: stem /4 x stage strides 1,2,2,2
@@ -172,10 +173,11 @@ def _fc(model):
     return model.fc.weight.detach().float().t(), model.fc.bias.detach().float()
 
 
-def tile_logits(model, xin_u8, hh: int, ft: int, fc_kernel, pre_packed=False):
-    """The per-tile body (fcn.py:135): backbone features of a tile batch,
-    the halo cropped, cast to bf16, then projected by the f32 fc kernel."""
-    f = model(model_input(model, xin_u8), features=True, pre_packed=pre_packed)
+def tile_logits(model, xin, hh: int, ft: int, fc_kernel, pre_packed=False):
+    """The per-tile body (fcn.py:135): backbone features of a tile batch
+    (``xin``: uint8 tiles, or the int8 ResNet's quantized ones), the halo
+    cropped, cast to bf16, then projected by the f32 fc kernel."""
+    f = model(model_input(model, xin), features=True, pre_packed=pre_packed)
     f = f[:, hh : hh + ft, hh : hh + ft].to(torch.bfloat16)
     return f.float() @ fc_kernel
 
@@ -274,20 +276,41 @@ def predict_full_fcn(
     pk = {False: 1, True: 4, "s2d8": 8}[pre_packed]
     tp, tc = (tile + 2 * halo) // pk, tile // pk
 
-    def gather_tiles(idxs):
+    lut = getattr(model, "input_lut", None)
+    if lut is not None:
+        # the int8 ResNet: K1's int8 mode gathers each step's tiles from the
+        # tile stack (or the one padded slide), quantizes them and writes
+        # them in the 4x4 form the s2d stem takes (or as they are for the
+        # imagenet stem): the model quantizes and repacks nothing
+        layout, model_packed = model.input_layout(pre_packed)
+        bank = (padded if pre_tiled else padded[None]).contiguous()
         if pre_tiled:
-            return padded[torch.from_numpy(idxs).to(device)]
-        return torch.stack([
-            padded[(t // tx) * tc : (t // tx) * tc + tp, (t % tx) * tc : (t % tx) * tc + tp]
-            for t in idxs.tolist()
-        ])
+            sidx, origin = idx, np.zeros((len(idx), 2), np.int64)
+        else:
+            sidx, origin = np.zeros_like(idx), np.stack([idx // tx, idx % tx], 1) * tc
+        sidx = torch.from_numpy(sidx.astype(np.int32)).to(device)
+        origin = torch.from_numpy(origin.astype(np.int32)).to(device)
+
+        def gather_tiles(s):
+            lanes = slice(s * tb, (s + 1) * tb)
+            return gather_quantize_int8(bank, sidx[lanes], origin[lanes], tp, lut, layout)
+    else:
+        model_packed = pre_packed
+
+        def gather_tiles(s):
+            idxs = idx[s * tb : (s + 1) * tb]
+            if pre_tiled:
+                return padded[torch.from_numpy(idxs).to(device)]
+            return torch.stack([
+                padded[(t // tx) * tc : (t // tx) * tc + tp, (t % tx) * tc : (t % tx) * tc + tp]
+                for t in idxs.tolist()
+            ])
 
     model.eval()
     with torch.inference_mode():
         fc_kernel, fc_bias = _fc(model)
         steps = [
-            tile_logits(model, gather_tiles(idx[s * tb : (s + 1) * tb]), hh, ft, fc_kernel,
-                        pre_packed=pre_packed)
+            tile_logits(model, gather_tiles(s), hh, ft, fc_kernel, pre_packed=model_packed)
             for s in range(n_steps)
         ]
         tiles_l = torch.cat(steps)

@@ -8,10 +8,13 @@ softmax and K2 (stitch), all queued on the current stream without waiting
 for the card. The host reads back only the final argmax map.
 
 K1 runs in the mode the model takes: gather + /255 to bf16 for a float
-model, the uint8 gather (its multi-slide mode on a one-slide view of the
-slide) for a model that declares ``wants_uint8`` (the int8 ResNet). A
-:class:`PackedSlide` is gathered in its 4×4 space-to-depth units (coords and
-patch size divided by 4, 48 channels), which K1 takes in both modes.
+model; for the int8 ResNet (which holds an ``input_lut``) its int8 mode, on
+a one-slide view of the slide, which quantizes every byte and writes the
+windows in the layout the model's stem takes (``input_layout``), so the
+model gets int8 and quantizes nothing; the uint8 gather for any other model
+that declares ``wants_uint8``. A :class:`PackedSlide` is gathered in its 4×4
+space-to-depth units (coords and patch size divided by 4, 48 channels),
+which K1 takes in every mode.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.gather import gather_multi_u8, gather_normalize
+from ..ops.gather import gather_multi_u8, gather_normalize, gather_quantize_int8
 from ..ops.stitch import scatter_add_map_exact
 
 
@@ -126,7 +129,7 @@ def predict_full_fused(
 
     image: (H, W, 3) uint8, numpy or a tensor (kept where it is if already on
     ``device``), or a :class:`PackedSlide` for a model with the s2d stem.
-    model: a float model (ResNet or ViT) or the int8 ResNet (``wants_uint8``)
+    model: a float model (ResNet or ViT) or the int8 ResNet (``input_lut``)
     on ``device``; it is put in eval mode.
     device: None runs on the current CUDA device and raises without one;
     ``"cpu"`` runs the plain versions of the kernels.
@@ -180,16 +183,22 @@ def predict_full_fused(
     if device.type == "cuda":
         coords = coords.pin_memory()  # lets every batch's upload run ahead
 
+    lut = getattr(model, "input_lut", None)
     wants_uint8 = getattr(model, "wants_uint8", False)
     one_slide = torch.zeros((bs,), dtype=torch.int32, device=device)
     kwargs = {"pre_packed": True} if packed else {}
+    if lut is not None:
+        layout, pre_packed = model.input_layout(packed)
+        kwargs = {"pre_packed": pre_packed} if pre_packed else {}
     model.eval()
     score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for b in range(n_b):
             cb = coords[b * bs : (b + 1) * bs]
             cg = cb // unit if packed else cb
-            if wants_uint8:  # K1's uint8 mode on a one-slide view of the slide
+            if lut is not None:  # K1's int8 mode on a one-slide view of the slide
+                x = gather_quantize_int8(slide[None], one_slide, cg, ps // unit, lut, layout)
+            elif wants_uint8:  # K1's uint8 mode
                 x = gather_multi_u8(slide[None], one_slide, cg, ps // unit)
             else:
                 x = gather_normalize(slide, cg, ps // unit, torch.bfloat16)

@@ -37,6 +37,7 @@ from deephisto_tpu_torch.predict import (
     stage_packed_slide,
 )
 from deephisto_tpu_torch.predict import fcn as tfcn
+from deephisto_tpu_torch.predict import pipeline as tpipe
 
 H = W = 480
 TILE, HALO = 256, 32
@@ -91,12 +92,36 @@ FCN_KINDS = ["raw", "raw tensor", "pack4", "pack4 tiled", "pack8", "pack8 tiled"
              "pack8 device", "pack8 tiled device"]
 
 
+def _int8_route(monkeypatch, module, model):
+    """Record the layouts K1's int8 mode is called with from ``module``'s
+    predict and the dtypes the int8 model is handed."""
+    seen = {"layouts": [], "dtypes": set()}
+    gather = module.gather_quantize_int8
+
+    def spy(images, slide_idx, coords, ps, lut, layout):
+        seen["layouts"].append(layout)
+        return gather(images, slide_idx, coords, ps, lut, layout)
+
+    monkeypatch.setattr(module, "gather_quantize_int8", spy)
+    hook = model.register_forward_pre_hook(lambda m, args: seen["dtypes"].add(args[0].dtype))
+    return seen, hook
+
+
 @pytest.mark.parametrize("kind", FCN_KINDS)
-def test_predict_full_fcn_matches_jax(kind):
+def test_predict_full_fcn_matches_jax(kind, monkeypatch):
+    """Through K1's int8 mode (the model is handed int8 tiles in its stem's
+    4×4 form, quantized by the gather), every staging gives the JAX
+    package's map, and the port's raw-image scores bit for bit."""
     _, _, tq, img = _setup()
     want_map, want_score = _jax_fcn()
-    got_map, got_score = predict_full_fcn(_staged(kind, img), tq, 5, tile=TILE, halo=HALO,
-                                          tile_batch=3, device="cpu")
+    seen, hook = _int8_route(monkeypatch, tfcn, tq)
+    try:
+        got_map, got_score = predict_full_fcn(_staged(kind, img), tq, 5, tile=TILE, halo=HALO,
+                                              tile_batch=3, device="cpu")
+    finally:
+        hook.remove()
+    layout = "s2d8_to_s2d4" if "pack8" in kind else "hwc" if "pack4" in kind else "s2d4"
+    assert set(seen["layouts"]) == {layout} and seen["dtypes"] == {torch.int8}
     assert got_map.dtype == np.uint8 and got_map.shape == (H // 16, W // 16)
     np.testing.assert_array_equal(got_map, want_map)
     np.testing.assert_allclose(got_score.numpy(), want_score, **FCN_TOL)
@@ -116,10 +141,11 @@ def test_predict_full_fcn_does_not_depend_on_tile_batch():
 
 
 @pytest.mark.parametrize("packed", [False, True])
-def test_exact_int8_predict_matches_jax(packed):
-    """The exact dense predict on the int8 ResNet (K1's uint8 gather, the
-    int8 forward, K2), raw and from a PackedSlide, against the JAX
-    package's on a 448 × 336 crop with a partial last batch."""
+def test_exact_int8_predict_matches_jax(packed, monkeypatch):
+    """The exact dense predict on the int8 ResNet (K1's int8 mode, which
+    hands the model quantized 4×4 windows, the int8 forward, K2), raw and
+    from a PackedSlide, against the JAX package's on a 448 × 336 crop with a
+    partial last batch."""
     qm, qv, tq, img = _setup()
     crop = np.ascontiguousarray(img[:448, :336])
     if "exact" not in _CACHE:
@@ -129,7 +155,13 @@ def test_exact_int8_predict_matches_jax(packed):
         _CACHE["exact"] = (np.asarray(am), np.asarray(sc))
     want_map, want_score = _CACHE["exact"]
     image = stage_packed_slide(crop, device="cpu") if packed else crop
-    got_map, got_score = predict_full_fused(image, tq, 5, batch_size=4, device="cpu")
+    seen, hook = _int8_route(monkeypatch, tpipe, tq)
+    try:
+        got_map, got_score = predict_full_fused(image, tq, 5, batch_size=4, device="cpu")
+    finally:
+        hook.remove()
+    assert set(seen["layouts"]) == {"hwc" if packed else "s2d4"}
+    assert seen["dtypes"] == {torch.int8}
     np.testing.assert_array_equal(got_map, want_map)
     np.testing.assert_allclose(got_score.numpy(), want_score, **EXACT_TOL)
 

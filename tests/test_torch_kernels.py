@@ -22,6 +22,8 @@ from deephisto_tpu_torch.ops import (
     gather_multi_u8,
     gather_normalize,
     gather_normalize_ref,
+    gather_quantize_int8,
+    gather_quantize_int8_ref,
     scatter_add_map,
     scatter_add_map_exact,
     scatter_add_map_ref,
@@ -413,6 +415,101 @@ def test_gather_multi_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert _build.launches["gather_multi_u8"] == 1
         assert torch.equal(got.cpu(), gather_multi_u8(bank.cpu(), idx, coords, ps))
+
+
+# K1's int8 mode: (layout, bank shape, window): the exact path's raw s2d4
+# windows, an odd channel count and window, PackedSlide and pack-4 tiles
+# (48 channels), the fcn's s2d8 tiles, and rows past 48 KB of shared memory
+INT8_CASES = [
+    ("s2d4", (2, 700, 900, 3), 224), ("s2d4", (1, 300, 301, 5), 20),
+    ("hwc", (2, 700, 900, 3), 57), ("hwc", (1, 200, 230, 48), 56),
+    ("hwc", (1, 300, 300, 48), 288), ("s2d8_to_s2d4", (3, 150, 150, 192), 144),
+    ("s2d8_to_s2d4", (1, 280, 280, 192), 272), ("hwc", (1, 1100, 1100, 48), 1100),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(INT8_CASES)))
+def test_gather_quantize_int8_kernel_matches_plain_on_card(case):
+    """K1's int8 mode is its plain version bit for bit in every layout: odd
+    starts (rows that begin inside a 16-byte chunk), clamped and negative
+    starts, a window count that fills no whole wave; two runs identical."""
+    _need_card()
+    layout, shape, ps = INT8_CASES[case]
+    s, h, w, _ = shape
+    rng = np.random.default_rng(case)
+    bank = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+    lut = torch.from_numpy(rng.integers(-128, 128, 256).astype(np.int8)).cuda()
+    n = 37
+    coords = rng.integers(-h, h + 5, size=(n, 2)).astype(np.int32)
+    coords[:6] = [(0, 0), (h - ps, w - ps), (3, 1), (1, 7), (-1, -1), (h, -w - 3)]
+    coords[6::2, 1] |= 1  # odd x
+    idx = rng.integers(-1, s + 1, size=n).astype(np.int32)
+    _build.reset_launches()
+    got = gather_quantize_int8(bank, idx, coords, ps, lut, layout)
+    again = gather_quantize_int8(bank, torch.from_numpy(idx).cuda(), torch.from_numpy(coords).cuda(),
+                                 ps, lut, layout)
+    torch.cuda.synchronize()
+    assert _build.launches["gather_quantize_int8"] == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, gather_quantize_int8_ref(bank, idx, coords, ps, lut, layout))
+
+
+@pytest.mark.gpu
+def test_gather_quantize_int8_refuses_a_table_off_the_card():
+    _need_card()
+    bank = torch.zeros((1, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    ok = (torch.zeros(1, dtype=torch.int32), torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="lut is on"):
+        gather_quantize_int8(bank, *ok, 8, torch.zeros(256, dtype=torch.int8), "hwc")
+
+
+def _k2_case(name):
+    """(map (dh, dw), coords in map cells, footprint, spans) of K2's card
+    cases: a 16384² predict's map with patches of 224/16 or 200/16."""
+    dh = dw = 1024
+    rng = np.random.default_rng(len(name))
+    grid = np.asarray([(y, x) for y in range(0, 16384 - 224 + 1, 112)
+                       for x in range(0, 16384 - 224 + 1, 112)], np.int32)
+    if name == "last rows":
+        return (dh, dw), grid[-256:] // 16, 14, None
+    if name == "wraps":
+        c = grid[3000:3256] // 16
+        c[::7] -= 1030  # some in [-dh, 0), some below
+        c[1::9, 1] = -5
+        return (dh, dw), c, 14, None
+    if name == "spans":
+        raw = np.asarray([(y, x) for y in range(0, 400, 100) for x in range(0, 16184, 100)],
+                         np.int32)[:256]
+        return (dh, dw), raw // 16, 13, (raw % 16 + 200) // 16
+    if name == "one patch":
+        return (dh, dw), np.asarray([[517, 3]], np.int32), 14, None
+    if name == "2000 patches":
+        return (dh, dw), rng.integers(0, 1030, (2000, 2)).astype(np.int32), 14, None
+    if name == "12 channels":  # more channels than one walk sums in registers
+        return (dh, dw), grid[:256] // 16, 14, None
+    assert name == "one tile row"  # rows 32..45 of the map: a band inside tile row 2
+    return (dh, dw), np.stack([np.full(256, 33), np.arange(256) * 4], 1).astype(np.int32), 8, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["last rows", "wraps", "spans", "one patch", "2000 patches",
+                                  "12 channels", "one tile row"])
+def test_scatter_add_map_kernel_is_the_plain_loop_bit_for_bit_on_card(name):
+    """K2 over the touched band only (or the whole map when a coordinate
+    wraps) adds the same f32 sums in the same order as the plain loop, and
+    two runs are identical."""
+    _need_card()
+    (dh, dw), coords, f, spans = _k2_case(name)
+    coords = torch.from_numpy(coords).cuda()
+    spans = None if spans is None else torch.from_numpy(spans.astype(np.int32)).cuda()
+    c = 12 if name == "12 channels" else 5
+    vals = torch.randn(len(coords), c, device="cuda")
+    base = torch.randn((dh, dw, c), device="cuda")  # the kernel adds to what the map holds
+    runs = [scatter_add_map(base.clone(), coords, vals, f, spans) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], scatter_add_map_ref(base.clone(), coords, vals, f, spans))
 
 
 # K6 cases: (x shape NHWC, Cout, kernel, stride, pads); SAME pads of flax,

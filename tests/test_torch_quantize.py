@@ -35,6 +35,7 @@ from deephisto_tpu_torch.models import ViT, quantize_model
 from deephisto_tpu_torch.models import quantize as tq
 from deephisto_tpu_torch.models.convert import flax_qvariables_to_torch
 from deephisto_tpu_torch.models.patch_cls_simple import get_model
+from deephisto_tpu_torch.ops import gather_quantize_int8
 
 SIZE = 64  # input extent of the forward checks (full width, batch 2)
 LOGITS_TOL = dict(rtol=0, atol=2e-6)  # the GAP mean summed in another order
@@ -203,12 +204,22 @@ def test_int8_forward_is_jax_bit_for_bit_at_every_boundary(stem, int8_residual, 
         tmodel(x, features=True).float().numpy(), _np(jmodel.apply(qv, jnp.asarray(u8), features=True)))
     logits = tmodel(x).numpy()
     np.testing.assert_allclose(logits, np.asarray(jmodel.apply(qv, jnp.asarray(u8))), **LOGITS_TOL)
+    # the predicts' route: K1's int8 mode quantizes the windows through the
+    # model's table and lays them out for its stem; the same logits
+    one_each = (torch.arange(len(u8), dtype=torch.int32), torch.zeros((len(u8), 2), dtype=torch.int32))
+    layout, pre_packed = tmodel.input_layout(False)
+    x8 = gather_quantize_int8(x, *one_each, SIZE, tmodel.input_lut, layout)
+    assert np.array_equal(tmodel(x8, pre_packed=pre_packed).numpy(), logits)
     if stem == "s2d":  # packed inputs: the same logits, bit for bit
         p4 = np.stack([jax_host_pack(im, pack=4) for im in u8])
         assert np.array_equal(tmodel(torch.from_numpy(p4), pre_packed=True).numpy(), logits)
         if pack_l1:
             p8 = np.stack([jax_host_pack(im, pack=8) for im in u8])
             assert np.array_equal(tmodel(torch.from_numpy(p8), pre_packed="s2d8").numpy(), logits)
+            layout, pre_packed = tmodel.input_layout("s2d8")
+            x8 = gather_quantize_int8(torch.from_numpy(p8), *one_each, SIZE // 8, tmodel.input_lut,
+                                      layout)
+            assert np.array_equal(tmodel(x8, pre_packed=pre_packed).numpy(), logits)
             np.testing.assert_allclose(
                 logits, np.asarray(jmodel.apply(qv, jnp.asarray(p8), pre_packed="s2d8")),
                 **LOGITS_TOL)
