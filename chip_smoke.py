@@ -84,7 +84,33 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     finite losses, BatchNorm running statistics moved, steps/s;
 17. one vit2p8 train step with the qkv gradient as K5/K4 write it and, in
     turns, through the parent's three selects: step times and profiles by
-    kernel group (launches and time).
+    kernel group (launches and time);
+18. the training program on the same slides (under a folder without the
+    synthetic marker): ``main(["--extract_test", "--config", ...])`` of
+    ``deephisto_tpu_torch.models.patch_cls_simple.train`` with
+    ``config_vit.yaml`` (ViT-S/16, depth 6, 196 tokens, batch 64, AdamW,
+    warmup-cosine) cut to 2 epochs of 10 steps, 2 validation steps and 16
+    test patches a class, then ``--resume`` to 3 epochs: K1's multi-slide
+    mode 1 and K3, K5, K4 6 each a training step, the files written, one
+    resumed epoch numbered 3, 3 rows in ``metrics.csv``; one step of the
+    trained ViT-S/16 (batch 64, 196 tokens) with K3-K5 against the same step
+    with the plain attention (loss and every parameter's gradient), then 8
+    steps on that batch; ``best_model.msgpack`` read by the port's
+    ``load_model`` into a fresh ViT serves a 2048² crop of the seeded slide
+    through ``predict_full_fused`` with the map and scores of a fresh ViT
+    holding the tensors the trainer's last ``save_model`` was given, copied
+    in memory at that call (no codec, no weight bridge); each epoch's
+    patches/s beside a bare ``make_fused_epoch`` of the same model and
+    batch, the seconds of extraction, validation, test, CSV, plots and each
+    checkpoint write and read, the checkpoint bytes, and an epoch's busy
+    share under the profiler;
+19. ``benchmarks/config_ctx64.yaml`` (ResNet-18, context 64, 352² windows)
+    for 1 epoch of 10 steps, its checkpoint served by ``predict_full_fcn``
+    (bf16) and ``predict_full_fused`` on the crop with the maps and scores
+    of the tensors its ``save_model`` was given, and the share of map cells where the two agree; and
+    ``config_resnet50_multimag.yaml`` (ResNet-50 on 9 channels, layers 1, 2,
+    4) for 1 epoch of 10 steps: 3 K1 launches a step, BatchNorm statistics
+    moved.
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -97,8 +123,11 @@ flash-attention backward; K5 first, it writes the
 di that K4 reads) against their plain version at the training shape, a
 ragged one, Dh 16/32/128 and f32, two runs bit-identical, timed beside their
 bounds, the plain version and SDPA's backward, with their design (wgmma at
-bf16 Dh 64), and timed at Dh 16, 32 and 128 too; and K1's multi-slide uint8 mode bit-equal to its plain version at
-the training bank's shape.
+bf16 Dh 64), and timed at Dh 16, 32 and 128 too; K3, K4 and K5 are also
+held at (64, 6, 196, 64), the ViT-S/16 training program's step; and K1's
+multi-slide uint8 mode bit-equal to its plain version at the training
+bank's shape and at the training program's: 64 windows of 224 and 352 px
+on the layer-2 bank, 64 of 224 px on the layer-1 and layer-4 banks.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
 last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -130,14 +159,15 @@ K3_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # path rounds Q·Kᵀ and its scaling to bf16 where K3 keeps f32, so logits move
 # at bf16 scale through 6 blocks; a class flips only on a near tie
 VIT_AGREE, VIT_DIFF = 0.99, 2e-2
-K3_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (256, 6, 196, 64),
+# (64, 6, 196, 64): the ViT-S/16 training program's step (phase 18)
+K3_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (256, 6, 196, 64), (64, 6, 196, 64),
              (16, 6, 300, 16), (16, 6, 300, 32)]
 # K4/K5 vs their plain version: bf16 gradients within 2 % of the largest
 # |gradient| (P and dS round to bf16 before their products against the
 # kernels' and the plain version's own roundings of S); f32 within 1e-4
 K45_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-K45_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (16, 6, 300, 16), (16, 6, 300, 32),
-              (8, 6, 300, 128)]
+K45_SHAPES = [(256, 6, 784, 64), (8, 6, 1000, 64), (64, 6, 196, 64), (16, 6, 300, 16),
+              (16, 6, 300, 32), (8, 6, 300, 128)]
 # training (phases 10-13): the vit2p8 recipe of benchmarks/time_to_accuracy.py
 TRAIN_SIDE, TRAIN_LAYER, TRAIN_CROP, TRAIN_STEPS, TRAIN_EPOCHS = 3072, 2, 16, 10, 2
 # the vit2p8 step vs the same step with the plain attention (bf16 Q·Kᵀ
@@ -440,33 +470,45 @@ def check_k3(device):
 
 
 def check_k1_multi(device):
-    """K1's multi-slide uint8 mode at the training bank's shape: 3 slides of
-    1536² (3072² at layer 2) plus the bank's slack, 256 windows of
-    224 + 2·16 px, bit-equal to the plain gather (starts clamped as
-    lax.dynamic_slice does, some out of range)."""
+    """K1's multi-slide uint8 mode bit-equal to the plain gather (starts
+    clamped as lax.dynamic_slice does, some out of range) at the training
+    paths' shapes: 3 slides of 3072² plus the bank's slack at layer 2 with
+    256 windows of 224 + 2·16 px (the vit2p8 epoch), 64 of 224 px (the
+    ViT-S/16 CLI) and 64 of 224 + 2·64 px (the ctx64 CLI), and 64 windows of
+    224 px on the multi-magnification banks of layers 1 and 4; timed at the
+    first shape."""
     from deephisto_tpu_torch.ops import gather_multi_u8, gather_patches_multi
     from deephisto_tpu_torch.samplers.bank import SLACK_COLS, SLACK_ROWS
 
-    side = TRAIN_SIDE // TRAIN_LAYER
-    shape = (3, side + SLACK_ROWS, side + SLACK_COLS, 3)
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    bank = torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
-    win = PS + 2 * TRAIN_CROP
     rng = np.random.default_rng(SEED + 5)
-    batches = []
-    for _ in range(8):
-        idx = rng.integers(0, 3, BS).astype(np.int32)
-        coords = rng.integers(0, side - win + 1, (BS, 2)).astype(np.int32)
-        batches.append((torch.from_numpy(idx).to(device), torch.from_numpy(coords).to(device)))
-    idx, coords = (t.clone() for t in batches[0])
-    idx[:2] = torch.tensor([-1, 5])
-    coords[:3] = torch.tensor([[-7, 3], [shape[1], shape[2]], [side - win, side - win]])
-    got = gather_multi_u8(bank, idx, coords, win)
-    torch.cuda.synchronize()
-    if not torch.equal(got, gather_patches_multi(bank, idx, coords, win)):
-        raise AssertionError("K1's multi-slide mode differs from its plain version")
-    print(f"K1 gather_multi_u8: bit-equal to the plain gather at N={BS}, window {win}, "
-          f"bank {shape}")
+
+    def check(layer, win, n):
+        side = TRAIN_SIDE // layer
+        shape = (3, side + SLACK_ROWS, side + SLACK_COLS, 3)
+        bank = torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+        batches = []
+        for _ in range(8):
+            idx = rng.integers(0, 3, n).astype(np.int32)
+            coords = rng.integers(0, side - win + 1, (n, 2)).astype(np.int32)
+            batches.append((torch.from_numpy(idx).to(device), torch.from_numpy(coords).to(device)))
+        idx, coords = (t.clone() for t in batches[0])
+        idx[:2] = torch.tensor([-1, 5])
+        coords[:3] = torch.tensor([[-7, 3], [shape[1], shape[2]], [side - win, side - win]])
+        got = gather_multi_u8(bank, idx, coords, win)
+        torch.cuda.synchronize()
+        if not torch.equal(got, gather_patches_multi(bank, idx, coords, win)):
+            raise AssertionError(f"K1's multi-slide mode differs from its plain version at N={n}, "
+                                 f"window {win}, bank {shape}")
+        print(f"K1 gather_multi_u8: bit-equal to the plain gather at N={n}, window {win}, "
+              f"bank {shape} (layer {layer})")
+        return bank, batches
+
+    win = PS + 2 * TRAIN_CROP
+    bank, batches = check(TRAIN_LAYER, win, BS)
+    for layer, w, n in ((TRAIN_LAYER, PS, 64), (TRAIN_LAYER, PS + 2 * 64, 64), (1, PS, 64),
+                        (4, PS, 64)):
+        check(layer, w, n)
     ms = cuda_ms(lambda i: gather_multi_u8(bank, *batches[i % 8], win), 40)
     plain_ms = cuda_ms(lambda i: gather_patches_multi(bank, *batches[i % 8], win), 10)
     nbytes = 2 * BS * win * win * 3 + BS * 12
@@ -884,12 +926,13 @@ def run_training(label, model, sampler, lr, wd, crop_pad, smoothing):
     return state, per_step, secs, peak, losses
 
 
-def vit_step_vs_plain(model, sampler, device):
+def vit_step_vs_plain(model, sampler, device, label="vit2p8"):
     """One train-mode loss and gradient of ``model`` on one sampled batch
     with K3-K5, and with the plain attention (FLASH_MIN_SEQ raised), from
     copies of the same weights; then 8 optimizer steps on that batch."""
     import copy
 
+    from deephisto_tpu_torch import _build
     from deephisto_tpu_torch.models import vit as vit_module
     from deephisto_tpu_torch.models.patch_cls_simple import make_steps
     from deephisto_tpu_torch.train import create_train_state, cross_entropy_loss
@@ -905,7 +948,14 @@ def vit_step_vs_plain(model, sampler, device):
         names, params = zip(*m.named_parameters())
         return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
 
+    before = dict(_build.launches)
     loss, grads = loss_and_grads()
+    torch.cuda.synchronize()
+    depth = model.depth
+    launched = {k: _build.launches.get(k, 0) - before.get(k, 0) for k in (
+        "flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    if set(launched.values()) != {depth}:
+        raise AssertionError(f"the {label} step launched {launched}, not {depth} of each")
     flash_min = vit_module.FLASH_MIN_SEQ
     vit_module.FLASH_MIN_SEQ = 1 << 30
     try:
@@ -919,12 +969,12 @@ def vit_step_vs_plain(model, sampler, device):
         rel[name] = float((g.float() - ref).norm()) / (denom if denom > 0 else 1.0)
     worst = max(rel, key=rel.get)
     dloss = abs(float(loss) - float(loss_p))
-    print(f"vit2p8 train step with K3-K5 vs the plain attention (batch {n}): loss "
+    print(f"{label} train step with K3-K5 ({launched}) vs the plain attention (batch {n}): loss "
           f"{float(loss):.6f} vs {float(loss_p):.6f} (|diff| {dloss:.3g}, bound {LOSS_DIFF}); "
           f"per-tensor ||g - g'||/||g'|| max {rel[worst]:.3g} at {worst} (bound {GRAD_REL}), "
           f"median {float(np.median(list(rel.values()))):.3g} over {len(rel)} tensors")
     if dloss > LOSS_DIFF or rel[worst] > GRAD_REL:
-        raise AssertionError("the vit2p8 step with K3-K5 disagrees with the plain attention")
+        raise AssertionError(f"the {label} step with K3-K5 disagrees with the plain attention")
 
     m = copy.deepcopy(model)
     state = create_train_state(m, 3e-4, weight_decay=0.05)
@@ -934,7 +984,7 @@ def vit_step_vs_plain(model, sampler, device):
         state, l, _ = train_step(state, x, labels)
         losses.append(l)
     losses = torch.stack(losses).tolist()
-    print(f"vit2p8 overfit of one batch of {n}: losses over 8 steps {[round(v, 4) for v in losses]}")
+    print(f"{label} overfit of one batch of {n}: losses over 8 steps {[round(v, 4) for v in losses]}")
     if not losses[-1] < losses[0]:
         raise AssertionError("8 steps on one batch did not lower its loss")
     return {"loss_diff": dloss, "worst_grad_rel": rel[worst], "worst_tensor": worst,
@@ -1358,10 +1408,358 @@ def qkv_split_ab(one, state, gen) -> dict:
     return out
 
 
+# ---- the training program (phases 18-19) --------------------------------
+
+CLI_MODULE = "deephisto_tpu_torch.models.patch_cls_simple.train"
+CLI_EPOCHS, CLI_STEPS, CLI_VAL_STEPS, CLI_TEST_PER_CLASS = 2, 10, 2, 16
+CLI_CROP = 2048  # the seeded slide's crop the trained checkpoints serve
+
+
+def yaml_lines(cfg: dict, indent: str = "") -> list[str]:
+    """A config of nested maps, scalars and lists as block YAML lines."""
+    lines = []
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            lines += [f"{indent}{k}:"] + yaml_lines(v, indent + "  ")
+        else:
+            lines.append(f"{indent}{k}: {yaml_scalar(v)}")
+    return lines
+
+
+def yaml_scalar(v) -> str:
+    """``v`` as YAML 1.1 reads it back: a float always with a dot (``1e-05``
+    would read as a string), strings quoted."""
+    if isinstance(v, float):
+        mant, _, exp = repr(v).partition("e")
+        return (mant if "." in mant else mant + ".0") + (f"e{exp}" if exp else "")
+    if isinstance(v, list):
+        return "[" + ", ".join(yaml_scalar(x) for x in v) + "]"
+    return json.dumps(v)
+
+
+def write_yaml(path: Path, cfg: dict) -> None:
+    path.write_text("\n".join(yaml_lines(cfg)) + "\n")
+
+
+class TrainSpy:
+    """While active, wraps the trainer module's epoch and eval factories and
+    its host-side steps: the seconds of each call by name (after a
+    synchronize), each training epoch's seconds and launches (deltas of
+    the launch counts, which it does not reset), and at each ``save_model``
+    a copy of the saved model's tensors as they stood in memory (``saves``:
+    (path, the epochs trained so far, state dict on the card))."""
+
+    TIMED = ("prepare_test_patches", "_test_pass", "save_plot", "append_metrics",
+             "save_model", "save_train_state", "load_train_state")
+
+    def __init__(self):
+        import importlib
+
+        self.mod = importlib.import_module(CLI_MODULE)
+        self.seconds: dict[str, list[float]] = {}
+        self.epochs: list[dict] = []
+        self.saves: list[tuple[Path, int, dict]] = []
+        self.last_epoch = None
+
+    def _timed(self, name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def _epoch_factory(self, factory):
+        from deephisto_tpu_torch import _build
+
+        def make(*a, **k):
+            epoch_fn = factory(*a, **k)
+            n_steps = a[3] if len(a) > 3 else k["n_steps"]
+
+            def run(state, gen):
+                before = dict(_build.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = epoch_fn(state, gen)  # returns after its one read back
+                secs = time.perf_counter() - t0
+                self.epochs.append({"seconds": secs, "steps": n_steps, "launches": {
+                    n: v - before.get(n, 0) for n, v in _build.launches.items()
+                    if v - before.get(n, 0)}})
+                self.last_epoch = (epoch_fn, state)
+                return out
+            return run
+        return make
+
+    def _save_model(self, save):
+        def call(path, model):
+            out = save(path, model)
+            inner = getattr(model, "inner", model)  # a ContextWindowModel saves its base
+            self.saves.append((Path(path), len(self.epochs), {
+                k: v.detach().clone() for k, v in inner.state_dict().items()}))
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.mod, n) for n in
+                      self.TIMED + ("make_fused_epoch", "make_fused_eval")}
+        for n in self.TIMED:
+            setattr(self.mod, n, self._timed(n, self.saved[n]))
+        self.mod.save_model = self._save_model(self._timed("save_model", self.saved["save_model"]))
+        setattr(self.mod, "make_fused_epoch", self._epoch_factory(self.saved["make_fused_epoch"]))
+        ev = self.saved["make_fused_eval"]
+        setattr(self.mod, "make_fused_eval", lambda *a, **k: self._timed("validation", ev(*a, **k)))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.mod, n, f)
+
+    def per_step(self, first: int = 0) -> dict:
+        """Launches a step over the epochs from index ``first`` on."""
+        steps = sum(e["steps"] for e in self.epochs[first:])
+        total: dict[str, float] = {}
+        for e in self.epochs[first:]:
+            for n, v in e["launches"].items():
+                total[n] = total.get(n, 0) + v
+        return {n: v / steps for n, v in total.items()}
+
+
+def run_cli(argv: list, label: str, batch: int):
+    """``main(argv)`` of the training program under a TrainSpy, every launch
+    count set to 0 just before and read just after. Returns (result, spy,
+    launches, seconds)."""
+    from deephisto_tpu_torch import _build
+
+    with TrainSpy() as spy:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = spy.mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.launches)
+    print(f"{label}: main({argv[:-2]}) in {secs:.2f} s; epochs "
+          + ", ".join(f"{e['steps'] * batch / e['seconds']:.1f} patches/s" for e in spy.epochs)
+          + f"; host steps (s) {json.dumps(spy.seconds)}")
+    return result, spy, launches, secs
+
+
+def cli_config(name: Path, root: Path, tag: str, **training) -> tuple[dict, Path]:
+    """The config file ``name`` with the phases' epochs and steps, its paths
+    in ``root``: (config, path of the written copy)."""
+    from deephisto_tpu_torch.models.patch_cls_simple.utils import load_config
+
+    cfg = load_config(name)
+    cfg["training"].update({"n_epochs": CLI_EPOCHS, "train_steps": CLI_STEPS,
+                            "val_steps": CLI_VAL_STEPS, "save_dir": str(root / f"checkpoints_{tag}"),
+                            "out_dir": str(root / f"output_{tag}"), **training})
+    cfg["test"].update(dir=str(root / "test"), samples_per_class=CLI_TEST_PER_CLASS)
+    cfg["dataset"]["folder"] = str(root / "dataset")
+    path = root / f"config_{tag}.yaml"
+    write_yaml(path, cfg)
+    return cfg, path
+
+
+def served_maps(model, crop, fcn: bool):
+    from deephisto_tpu_torch.predict import predict_full_fcn, predict_full_fused
+
+    with torch.inference_mode():
+        if fcn:
+            out = predict_full_fcn(crop, model, N_CLASSES, tile=FCN_TILE, halo=FCN_HALO)
+        else:
+            out = predict_full_fused(crop, model, N_CLASSES)
+    return out[0], out[1].clone()
+
+
+def same_maps(a, b) -> bool:
+    return bool(np.array_equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def fresh_model(cfg: dict):
+    """A new base model of ``cfg`` (a ctx model's inner ResNet), on the host."""
+    from deephisto_tpu_torch.models.patch_cls_simple import get_model
+
+    m = cfg["model"]
+    return get_model(N_CLASSES, depth=m.get("depth", 18), arch=m.get("arch", "resnet"),
+                     stem=m.get("stem", "imagenet"), width=m.get("width", 1),
+                     patch=m.get("patch", 16))
+
+
+def checkpoint_model(cfg: dict, path: Path, device):
+    """A fresh model of ``cfg`` with the weights of the checkpoint at ``path``
+    (the port's load_model), on the card in eval mode; and the read's seconds."""
+    from deephisto_tpu_torch.train import load_model, load_variables
+
+    model = fresh_model(cfg)
+    t0 = time.perf_counter()
+    variables = load_model(path)
+    read_s = time.perf_counter() - t0
+    return load_variables(model, variables).to(device).eval(), read_s
+
+
+def saved_in_memory(cfg: dict, saves: list, path: Path, device):
+    """A fresh model of ``cfg`` holding the tensors that the last
+    ``save_model`` to ``path`` was given, as they stood in memory (no
+    checkpoint codec, no weight bridge), on the card in eval mode; and the
+    epochs trained before that save."""
+    _, epoch, state_dict = [x for x in saves if x[0] == path][-1]
+    model = fresh_model(cfg)
+    model.load_state_dict(state_dict)
+    return model.to(device).eval(), epoch
+
+
+def host_op_ms(fn, top: int = 15) -> dict:
+    """The host's self time of ``fn()`` by operator (ms), the largest first:
+    where a host-bound loop spends its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return {f"{e.key} x{e.count}": e.self_cpu_time_total / 1e3 for e in rows}
+
+
+def train_cli_phase(root: Path, sampler, device) -> dict:
+    """Phases 18 and 19 (module docstring). Returns the numbers, with
+    ``launches`` {path: (the run's launches, launches a training step)}."""
+    import importlib.util
+
+    from deephisto_tpu_torch.models.patch_cls_simple import get_model, init_model, make_fused_epoch
+    from deephisto_tpu_torch.train import create_train_state
+
+    pkg = Path(__file__).resolve().parent / "deephisto_tpu_torch/models/patch_cls_simple"
+    ds = root / "dataset"  # the phases' slides under a folder without the
+    ds.mkdir()  # synthetic marker, which resolve_dataset would remake
+    for sub in ("images", "annotations"):
+        (ds / sub).symlink_to(root / "synthetic_hard" / sub)
+    out: dict = {"launches": {}}
+
+    # 18. ViT-S/16 through the CLI: extract + 2 epochs, then resume for 1
+    cfg, path = cli_config(pkg / "config_vit.yaml", root, "vit")
+    bs = cfg["training"]["batch_size"]
+    res1, spy1, l1, s1 = run_cli(["--extract_test", "--config", str(path)], "ViT-S/16 CLI", bs)
+    cfg["training"]["n_epochs"] = CLI_EPOCHS + 1
+    write_yaml(path, cfg)
+    res2, spy2, l2, s2 = run_cli(["--resume", "--config", str(path)], "ViT-S/16 CLI, resumed", bs)
+    launches = {n: l1.get(n, 0) + l2.get(n, 0) for n in set(l1) | set(l2)}
+    spy2.epochs = spy1.epochs + spy2.epochs
+    per_step = spy2.per_step()
+    want = {"gather_multi_u8": 1, "flash_attention": VIT_DEPTH,
+            "flash_attention_bwd_dkv": VIT_DEPTH, "flash_attention_bwd_dq": VIT_DEPTH}
+    got = {k: per_step.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"the ViT-S/16 CLI epoch launched {got} a step, not {want}")
+    out["launches"]["train_cli_vit_s16"] = (launches, per_step)
+    out_dir, save_dir = Path(cfg["training"]["out_dir"]), Path(cfg["training"]["save_dir"])
+    test_files = sorted(Path(cfg["test"]["dir"]).glob("*/*.png"))
+    rows = (out_dir / "metrics.csv").read_text().splitlines()
+    plots = importlib.util.find_spec("matplotlib") is not None  # the trainer plots if so
+    missing = [f for f in (out_dir / "best_model.msgpack", out_dir / "metrics.csv",
+                           save_dir / "last_state.msgpack")
+               + ((out_dir / "loss.jpg", out_dir / "acc.jpg") if plots else ())
+               if not f.is_file()]
+    if missing or not test_files:
+        raise AssertionError(f"the CLI did not write {missing or 'the test set'}")
+    if len(res2["train_losses"]) != 1 or len(res1["train_losses"]) != CLI_EPOCHS:
+        raise AssertionError(f"the runs trained {len(res1['train_losses'])} and "
+                             f"{len(res2['train_losses'])} epochs, not {CLI_EPOCHS} and 1")
+    if [r.split(",")[0] for r in rows] != ["epoch", "1", "2", "3"]:
+        raise AssertionError(f"metrics.csv holds {rows}")
+    crop = seeded_slide(device)[:CLI_CROP, :CLI_CROP].contiguous()
+    final = res2["model"].eval()
+    step_vs_plain = vit_step_vs_plain(final, sampler, device, label="ViT-S/16 (CLI-trained)")
+    best = out_dir / "best_model.msgpack"
+    for spy, first in ((spy1, 0), (spy2, CLI_EPOCHS)):
+        spy.saves = [(p, first + e, sd) for p, e, sd in spy.saves]
+    ref, best_epoch = saved_in_memory(cfg, spy1.saves + spy2.saves, best, device)
+    loaded, read_s = checkpoint_model(cfg, best, device)
+    if not same_maps(served_maps(loaded, crop, fcn=False), served_maps(ref, crop, fcn=False)):
+        raise AssertionError("the ViT served from best_model.msgpack differs from the model "
+                             f"saved in memory after epoch {best_epoch}")
+    bare = init_model(get_model(N_CLASSES, arch="vit", depth=VIT_DEPTH), seed=SEED).to(device)
+    bare_state = create_train_state(bare, cfg["training"]["lr"],
+                                    weight_decay=cfg["training"]["weight_decay"])
+    bare_epoch = make_fused_epoch(bare, sampler, bs, CLI_STEPS)
+    gen = torch.Generator().manual_seed(SEED)
+    bare_epoch(bare_state, gen)
+    bare_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare_epoch(bare_state, gen)
+        bare_s.append(time.perf_counter() - t0)
+    epoch_fn, state = spy2.last_epoch
+    prof = profile_device(lambda: epoch_fn(state, gen))
+    host_ops = host_op_ms(lambda: epoch_fn(state, gen))
+    secs = {n: spy1.seconds.get(n, []) + spy2.seconds.get(n, [])
+            for n in set(spy1.seconds) | set(spy2.seconds)}
+    out["train_cli_vit_s16"] = {
+        "patches_per_s_by_epoch": [e["steps"] * bs / e["seconds"] for e in spy2.epochs],
+        "bare_make_fused_epoch_patches_per_s": [CLI_STEPS * bs / t for t in bare_s],
+        "epoch_busy_share": prof["device_busy_share"], "epoch_profile_wall_ms": prof["wall_ms"],
+        "epoch_kernel_ms": prof["kernel_ms"], "epoch_groups_ms": prof["groups_ms"],
+        "epoch_group_launches": prof["group_launches"], "epoch_host_ops_self_ms": host_ops,
+        "host_seconds": secs, "checkpoint_read_s": read_s, "main_seconds": [s1, s2],
+        "checkpoint_bytes": {"best_model": best.stat().st_size,
+                             "last_state": (save_dir / "last_state.msgpack").stat().st_size},
+        "served_from": f"the model in memory at its save after epoch {best_epoch} of "
+                       f"{CLI_EPOCHS + 1}", "step_vs_plain_attention": step_vs_plain,
+        "test_patches": len(test_files), "metrics_rows": rows[1:],
+    }
+    print(f"ViT-S/16 CLI: {json.dumps(out['train_cli_vit_s16'])}")
+    del res1, res2, spy1, spy2, final, loaded, ref, bare, bare_state, bare_epoch, state, epoch_fn
+
+    # 19. the ctx64 ResNet-18 (fcn-native), served by both predicts; the
+    # multi-magnification ResNet-50 on 9 channels
+    cfg, path = cli_config(Path(__file__).resolve().parent / "benchmarks/config_ctx64.yaml",
+                           root, "ctx64", n_epochs=1)
+    bs = cfg["training"]["batch_size"]
+    res, spy, launches, secs = run_cli(["--config", str(path)], "ctx64 ResNet-18 CLI", bs)
+    per_step = spy.per_step()
+    if per_step.get("gather_multi_u8") != 1:
+        raise AssertionError(f"the ctx64 epoch launched {per_step} a step")
+    out["launches"]["train_ctx64_r18"] = (launches, per_step)
+    best = Path(cfg["training"]["out_dir"]) / "best_model.msgpack"
+    model, best_epoch = saved_in_memory(cfg, spy.saves, best, device)
+    loaded, read_s = checkpoint_model(cfg, best, device)
+    maps = {}
+    for fcn in (True, False):
+        maps[fcn] = served_maps(loaded, crop, fcn)
+        if not same_maps(maps[fcn], served_maps(model, crop, fcn)):
+            raise AssertionError(f"the ctx64 ResNet-18 served from best_model.msgpack by "
+                                 f"{'predict_full_fcn' if fcn else 'predict_full_fused'} "
+                                 f"differs from the model saved in memory after epoch {best_epoch}")
+    out["train_ctx64_r18"] = {
+        "patches_per_s": [e["steps"] * bs / e["seconds"] for e in spy.epochs],
+        "main_seconds": secs, "host_seconds": spy.seconds, "checkpoint_read_s": read_s,
+        "fcn_vs_exact_map_agreement": float((maps[True][0] == maps[False][0]).mean()),
+        "served_from": f"the model in memory at its save after epoch {best_epoch} of 1",
+    }
+    del res, model, loaded, maps
+    cfg, path = cli_config(pkg / "config_resnet50_multimag.yaml", root, "multimag", n_epochs=1)
+    bs = cfg["training"]["batch_size"]
+    res, spy, launches, secs = run_cli(["--config", str(path)], "multi-mag ResNet-50 CLI", bs)
+    per_step = spy.per_step()
+    if per_step.get("gather_multi_u8") != 3:
+        raise AssertionError(f"the multi-mag epoch launched {per_step} a step, not 3 K1")
+    bn = res["model"].bn1
+    if not bool((bn.running_mean != 0).any()) or not bool((bn.running_var != 1).any()):
+        raise AssertionError("multi-mag training left the BatchNorm statistics as they were")
+    out["launches"]["train_multimag_r50"] = (launches, per_step)
+    out["train_multimag_r50"] = {
+        "patches_per_s": [e["steps"] * bs / e["seconds"] for e in spy.epochs],
+        "main_seconds": secs, "host_seconds": spy.seconds, "launches_per_step": per_step}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from deephisto_tpu_torch import _build
     from deephisto_tpu_torch.predict import dense_coords, predict_full_fused
 
@@ -1673,15 +2071,16 @@ def main() -> int:
     from deephisto_tpu_torch.samplers import AnnoRegionRndSampler
     from deephisto_tpu_torch.train import create_train_state
 
-    with tempfile.TemporaryDirectory() as root:
-        pairs, data_s = train_pairs(root)
-        t0 = time.perf_counter()
-        sampler = AnnoRegionRndSampler(pairs, layer=TRAIN_LAYER, patch_size=PS,
-                                       patches_from_one_region=4, one_image_for_batch=True,
-                                       verbose=False)
-        print(f"training data: {len(pairs)} synthetic {TRAIN_SIDE}^2 slides made in {data_s:.1f} s; "
-              f"sampler (region table, bank {tuple(sampler.bank.images.shape)} on the card) "
-              f"in {time.perf_counter() - t0:.1f} s")
+    data_dir = tempfile.TemporaryDirectory()  # phases 18-19 train from its files too
+    root = data_dir.name
+    pairs, data_s = train_pairs(root)
+    t0 = time.perf_counter()
+    sampler = AnnoRegionRndSampler(pairs, layer=TRAIN_LAYER, patch_size=PS,
+                                   patches_from_one_region=4, one_image_for_batch=True,
+                                   verbose=False)
+    print(f"training data: {len(pairs)} synthetic {TRAIN_SIDE}^2 slides made in {data_s:.1f} s; "
+          f"sampler (region table, bank {tuple(sampler.bank.images.shape)} on the card) "
+          f"in {time.perf_counter() - t0:.1f} s")
     vit = init_model(get_model(N_CLASSES, arch="vit", depth=VIT_DEPTH, stem="conv",
                                patch=VIT_PATCH), seed=SEED).to(device)
     state, per_step, step_s, peak, _ = run_training(
@@ -1715,7 +2114,20 @@ def main() -> int:
     one = make_fused_epoch(state.model, sampler, BS, 1, crop_pad=TRAIN_CROP, label_smoothing=0.1)
     gen = torch.Generator().manual_seed(SEED + 9)
     print(f"qkv split A/B of one vit2p8 train step: {json.dumps(qkv_split_ab(one, state, gen))}")
+    del one, state
 
+    # 18. the training program: config_vit.yaml (ViT-S/16, depth 6, 196
+    # tokens, batch 64) through the CLI's main, with test extraction, then
+    # resumed for one more epoch; its checkpoint served by predict_full_fused
+    cli = train_cli_phase(Path(root), sampler, device)
+    for path, (run_launches, per_step) in cli.pop("launches").items():
+        for k in kernels:
+            k["launches"] += run_launches.get(k["name"], 0)
+            k["launches_by_path"][path] = per_step.get(k["name"], 0)
+    print("training programs: " + json.dumps(cli))
+    data_dir.cleanup()
+
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

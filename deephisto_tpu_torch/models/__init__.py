@@ -1,7 +1,12 @@
 """Model zoo: the ResNet and ViT families, int8 PTQ of the ResNet, and the
-flax → torch weight bridge."""
+flax ↔ torch weight bridge."""
 
-from .convert import flax_qvariables_to_torch, flax_resnet_to_torch, flax_vit_to_torch
+from .convert import (
+    flax_qvariables_to_torch,
+    flax_resnet_to_torch,
+    flax_vit_to_torch,
+    torch_to_flax,
+)
 from .quantize import QuantizedResNet, quantize_resnet
 from .resnet import (
     BasicBlock,
@@ -45,4 +50,5 @@ __all__ = [
     "flax_qvariables_to_torch",
     "flax_resnet_to_torch",
     "flax_vit_to_torch",
+    "torch_to_flax",
 ]

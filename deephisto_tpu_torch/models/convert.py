@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's flax ResNet and ViT variables → state
-dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`, and its
-int8 ``qvariables`` → the quantized parameters of the port's
+dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`, back
+again (:func:`torch_to_flax`, for the flax-format checkpoints), and its int8
+``qvariables`` → the quantized parameters of the port's
 :class:`~.quantize.QuantizedResNet` (:func:`flax_qvariables_to_torch`).
 
 Each pair of models shares module names (ResNet: ``conv1``, ``bn1``,
@@ -14,7 +15,9 @@ deephisto_tpu/models/vit.py:92-250), so the mapping is by name:
 * BN, LayerNorm and GroupNorm ``scale``/``bias`` (params) →
   ``weight``/``bias``; BN ``mean``/``var`` (batch_stats) →
   ``running_mean``/``running_var``;
-* the ViT's ``pos_embed`` is copied as it is.
+* the ViT's ``pos_embed`` is copied as it is;
+* BN's ``num_batches_tracked`` has no flax leaf (flax's BatchNorm keeps no
+  count); it is 0 after a load and dropped on the way back.
 """
 
 from __future__ import annotations
@@ -36,13 +39,14 @@ def _leaves(tree, prefix=()):
 
 def flax_resnet_to_torch(variables_np) -> dict[str, torch.Tensor]:
     """``variables_np``: the flax ``{"params": ..., "batch_stats": ...}``
-    tree with numpy leaves. Returns float32 tensors keyed as the port's
-    state dict, ready for ``load_state_dict`` (which casts to each
-    parameter's dtype)."""
+    tree with numpy leaves (or the ``{"params": ...}`` tree of a parameter
+    tree alone, such as an optimizer's moments). Returns float32 tensors,
+    copies, keyed as the port's state dict, ready for ``load_state_dict``
+    (which casts to each parameter's dtype)."""
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(variables_np["params"]):
         if path == ("pos_embed",):  # the ViT's one top-level parameter
-            sd["pos_embed"] = torch.from_numpy(np.ascontiguousarray(leaf, np.float32))
+            sd["pos_embed"] = torch.from_numpy(np.array(leaf, np.float32))
             continue
         module, name = ".".join(path[:-1]), path[-1]
         if name == "kernel":
@@ -50,11 +54,11 @@ def flax_resnet_to_torch(variables_np) -> dict[str, torch.Tensor]:
             name = "weight"
         else:
             name = _PARAM[name]
-        sd[f"{module}.{name}"] = torch.from_numpy(np.ascontiguousarray(leaf, np.float32))
+        sd[f"{module}.{name}"] = torch.from_numpy(np.array(leaf, np.float32, order="C"))
     for path, leaf in _leaves(variables_np.get("batch_stats", {})):
         module = ".".join(path[:-1])
         sd[f"{module}.{_STAT[path[-1]]}"] = torch.from_numpy(
-            np.ascontiguousarray(leaf, np.float32)
+            np.array(leaf, np.float32, order="C")
         )
         sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return sd
@@ -66,6 +70,46 @@ def flax_vit_to_torch(variables_np) -> dict[str, torch.Tensor]:
     float32 tensors keyed as the port's ViT state dict. The names and rules
     are the ResNet's, plus ``pos_embed``."""
     return flax_resnet_to_torch(variables_np)
+
+
+def _flax_key(name: str, ndim: int) -> tuple[str, tuple[str, ...]] | None:
+    """The (collection, path) of the flax leaf of the port's state-dict entry
+    ``name`` of ``ndim`` dimensions; None for ``num_batches_tracked``."""
+    if name == "pos_embed":
+        return "params", ("pos_embed",)
+    *module, leaf = name.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", (*module, leaf[len("running_"):])
+    if leaf == "weight":  # conv (4-d) and Dense (2-d) kernels; norm scales (1-d)
+        return "params", (*module, "kernel" if ndim in (2, 4) else "scale")
+    if leaf == "bias":
+        return "params", (*module, "bias")
+    raise ValueError(f"{name}: no flax leaf for this state-dict entry")
+
+
+def torch_to_flax(named_tensors) -> dict:
+    """The reverse of :func:`flax_resnet_to_torch` for the ResNet and ViT
+    families: ``(name, tensor)`` pairs of a port state dict (or of any
+    tensors laid out as its parameters, such as Adam's moments) → the flax
+    ``{"params": ..., "batch_stats": ...}`` tree of float32 numpy leaves,
+    conv kernels OIHW → HWIO and Dense kernels (out, in) → (in, out)."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for name, t in named_tensors:
+        key = _flax_key(name, t.ndim)
+        if key is None:
+            continue
+        t = t.detach().float()
+        if t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        elif t.ndim == 2:
+            t = t.t()
+        node = tree[key[0]]
+        for part in key[1][:-1]:
+            node = node.setdefault(part, {})
+        node[key[1][-1]] = t.contiguous().cpu().numpy()  # transposed where t lies
+    return tree
 
 
 def flax_qvariables_to_torch(qvariables_np) -> dict:

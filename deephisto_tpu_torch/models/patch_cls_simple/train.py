@@ -1,7 +1,13 @@
-"""Patch-classifier training, a port of the device half of
-``deephisto_tpu/models/patch_cls_simple/train.py``: ``make_fused_epoch``,
-``make_fused_eval`` and ``make_steps`` (single device; the JAX package's
-``mesh=`` is not ported).
+"""Patch-classifier training program, a port of
+``deephisto_tpu/models/patch_cls_simple/train.py``: the epoch, eval and step
+functions (``make_fused_epoch``, ``make_fused_eval``, ``make_steps``) and the
+program around them (``train(cfg)``, ``main``: test-set extraction, epochs
+with validation and test evaluation, the best-model and resume checkpoints
+in the JAX package's flax msgpack format, ``metrics.csv`` and the plots).
+Single device: the JAX package's ``mesh=`` (data parallel) is not ported.
+
+Run it as ``python -m deephisto_tpu_torch.models.patch_cls_simple.train
+[--extract_test] [--resume] [--config X.yaml]``.
 
 The JAX epoch is one ``lax.scan`` program; here it is a Python loop that
 queues every step on the device and keeps each step's loss and correct
@@ -17,18 +23,92 @@ JAX epoch's key), from which it draws two seeds per step on the host; they
 seed the step's device generators for sampling and for augmentation, as the
 JAX epoch splits its key into per-step (sample, augment) keys. So the
 presampled path (all coordinates sampled before the loop) and the per-step
-path draw the same coordinates from the same generator state.
+path draw the same coordinates from the same generator state. ``train``
+seeds each epoch's generators from ``(training.seed, epoch)``, as the JAX
+trainer folds the epoch into its key, so a resumed run draws the batches of
+an uninterrupted one.
 
-The JAX trainer's ``train(cfg)`` CLI, its checkpoints and the
-``ContextWindowModel`` are not ported yet (ROADMAP, queue A item 7).
+Deliberate deviations, forced by the machine with the card (no PIL, no
+matplotlib): the extracted test set is PNG, not JPEG (lossless, so it holds
+the sampled pixels exactly; the JAX reader reads it too), and ``loss.jpg`` /
+``acc.jpg`` are written only where matplotlib is importable (otherwise the
+trainer says once that it skipped them; ``metrics.csv`` holds the same
+numbers). Validation runs without the training augmentations, as in the JAX
+trainer.
 """
 
 from __future__ import annotations
 
+import argparse
+import shutil
+import time
+from pathlib import Path
+
+import numpy as np
 import torch
 
+from ..._device import resolve_device
+from ...samplers import AnnoRegionRndSampler, extract_and_save_subset
+from ...train import (
+    BEST_MODEL_FILE,
+    create_train_state,
+    load_train_state,
+    make_scheduler,
+    save_model,
+    save_train_state,
+    set_learning_rate,
+)
 from ...train.metrics import cross_entropy_loss
 from ...train.state import TrainState
+from ...utils import get_img_ano_paths, resolve_dataset
+from . import utils
+from .model import get_model, init_model
+
+CONFIG_PATH = Path(__file__).with_name("config.yaml")
+METRICS_HEADER = ("epoch,train_loss,train_acc,val_loss,val_acc,test_loss,test_acc,lr,"
+                  "patches_per_s\n")
+
+
+def save_plot(train_values, val_values, test_values, title, filename, out_dir) -> bool:
+    """Plot the three curves to ``out_dir/filename``; False (nothing written)
+    where matplotlib is not installed."""
+    try:
+        import matplotlib
+    except ImportError:
+        return False
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+
+    plt.figure()
+    plt.plot(train_values, label="train")
+    plt.plot(val_values, label="val")
+    plt.plot(test_values, label="test")
+    plt.title(title)
+    plt.xlabel("Epoch")
+    plt.legend()
+    plt.savefig(Path(out_dir) / filename)
+    plt.close()
+    return True
+
+
+def prepare_test_patches(cfg, device=None):
+    """Extract the test set (``cfg["test"]``) from the dataset's test slides
+    into an ImageFolder of PNG patches, replacing any earlier one."""
+    ds_folder = resolve_dataset(cfg["dataset"]["folder"])
+    img_anno_paths_test = get_img_ano_paths(ds_folder, sample="test")
+
+    out_dir = Path(cfg["test"]["dir"])
+    if out_dir.exists() and out_dir.is_dir():
+        shutil.rmtree(out_dir)
+
+    extract_and_save_subset(
+        img_anno_paths=img_anno_paths_test,
+        out_folder=out_dir,
+        patch_size=cfg["dataset"]["patch_size"],
+        layer=cfg["dataset"]["layer"],
+        patches_per_class=cfg["test"]["samples_per_class"],
+        device=device,
+    )
 
 
 def _is_sampler(source) -> bool:
@@ -77,14 +157,22 @@ def make_fused_epoch(
     ``presample_chunk``: with a sampler, the coordinates of all steps are
     sampled before the loop, ``presample_chunk`` steps' rejection trials in
     one batch (the same coordinates as the per-step path); 0/None samples
-    per step. ``model`` is the model the state holds."""
+    per step. ``model`` is the model the state holds; a
+    ``ContextWindowModel`` (``model.context`` > 0) gets context windows from
+    the sampler, and cannot be combined with ``crop_pad`` (both repurpose the
+    context gather)."""
     if crop_pad < 0:
         raise ValueError("crop_pad must be non-negative")
+    model_ctx = getattr(model, "context", 0)
+    if crop_pad and model_ctx:
+        raise ValueError("crop_pad augmentation and a ContextWindowModel both "
+                         "repurpose the context gather; use one or the other")
+    gather_ctx = model_ctx + crop_pad
     is_sampler = _is_sampler(sample_source)
     presample = bool(presample_chunk) and is_sampler
     if is_sampler:
-        sample_fn = sample_source.make_sample_fn(batch_size, context=crop_pad)
-        gather_fn = sample_source.make_gather_fn(context=crop_pad)
+        sample_fn = sample_source.make_sample_fn(batch_size, context=gather_ctx)
+        gather_fn = sample_source.make_gather_fn(context=gather_ctx)
     else:
         sample_fn = sample_source
 
@@ -144,8 +232,8 @@ def make_fused_eval(model, sample_source, batch_size, n_steps):
     """Validation pass: ``eval_fn(state, gen) -> (losses, corrects)`` over
     ``n_steps`` batches sampled as in :func:`make_fused_epoch`, the model in
     eval mode, read back once."""
-    sample_fn = (sample_source.make_sample_fn(batch_size) if _is_sampler(sample_source)
-                 else sample_source)
+    sample_fn = (sample_source.make_sample_fn(batch_size, context=getattr(model, "context", 0))
+                 if _is_sampler(sample_source) else sample_source)
 
     @torch.no_grad()
     def evaluate(state, gen):
@@ -189,3 +277,315 @@ def make_steps(model):
         return cross_entropy_loss(logits, labels), (logits.argmax(dim=-1) == labels).sum(), logits
 
     return train_step, eval_step
+
+
+def append_metrics(path: Path, row: str, fresh: bool) -> None:
+    """Append one epoch's row to ``metrics.csv``, writing the header first
+    when the file is missing or ``fresh`` (the first epoch of a run that does
+    not resume)."""
+    if fresh or not path.exists():
+        path.write_text(METRICS_HEADER)
+    with path.open("a") as f:
+        f.write(row)
+
+
+def _epoch_generators(seed: int, epoch: int) -> tuple[torch.Generator, torch.Generator]:
+    """The epoch's (train, val) CPU generators, a function of ``(seed,
+    epoch)`` only, as the JAX trainer's ``split(fold_in(key, epoch))``."""
+    a, b = np.random.SeedSequence([seed, epoch]).generate_state(2)
+    return torch.Generator().manual_seed(int(a)), torch.Generator().manual_seed(int(b))
+
+
+def _test_pass(state, eval_step, images, labels, batch_size):
+    """The test set in fixed-shape batches, the last one padded by repeating
+    its final patch and the padding masked out; the card's logits are read
+    back once. Returns (loss, accuracy): per-sample max-subtracted CE (float32
+    stable at confident logits) and accuracy over the real samples."""
+    n = images.shape[0]
+    logits_all = []
+    for s in range(0, n, batch_size):
+        imgs, labs = images[s:s + batch_size], labels[s:s + batch_size]
+        pad = batch_size - imgs.shape[0]
+        if pad:  # pad to fixed shape, mask the tail
+            imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
+            labs = torch.cat([labs, labs[-1:].expand(pad)])
+        _, _, logits = eval_step(state, imgs.float() / 255.0, labs)
+        logits_all.append(logits[:batch_size - pad])
+    logits_np = torch.cat(logits_all).float().cpu().numpy()
+    labels_np = labels.cpu().numpy()
+    test_loss, correct = 0.0, 0
+    for s in range(0, n, batch_size):
+        lv, lab = logits_np[s:s + batch_size], labels_np[s:s + batch_size]
+        correct += int((np.argmax(lv, -1) == lab).sum())
+        m = lv.max(-1, keepdims=True)
+        lse = m[:, 0] + np.log(np.exp(lv - m).sum(-1))
+        test_loss += float((lse - lv[np.arange(len(lab)), lab]).sum())
+    return test_loss / max(n, 1), correct / max(n, 1)
+
+
+def train(cfg, resume: bool = False, device=None):
+    """Train per ``cfg`` (the JAX trainer's config schema) on ``device`` (the
+    current CUDA device by default; ``"cpu"`` runs the plain versions).
+    Writes ``best_model.msgpack``, ``metrics.csv`` and the plots to
+    ``training.out_dir`` and ``last_state.msgpack`` to ``training.save_dir``
+    every epoch; ``resume`` continues from ``last_state.msgpack``. The JAX
+    trainer's ``mesh=`` (data parallel) is not ported: this trains on one
+    device. Returns the per-epoch losses and accuracies."""
+    device = utils.get_device() if device is None else resolve_device(device)
+    print(f"Using device: {device}")
+
+    save_dir = Path(cfg["training"]["save_dir"])
+    save_dir.mkdir(parents=True, exist_ok=True)
+    out_dir = Path(cfg["training"]["out_dir"])
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    ds_folder = resolve_dataset(cfg["dataset"]["folder"])
+    img_anno_paths_train = get_img_ano_paths(ds_folder, sample="train")
+
+    # multi-mag banks are created first so the region sampler can share the
+    # base-layer bank instead of staging the same layer twice
+    mm_layers = cfg["dataset"].get("multi_mag_layers")
+    mm_bank = None
+    shared_bank = None
+    if mm_layers:
+        from ...samplers.multimag import MultiMagBank
+
+        mm_bank = MultiMagBank([p for p, _ in img_anno_paths_train], tuple(mm_layers),
+                               device=device)
+        shared_bank = mm_bank.banks.get(cfg["dataset"]["layer"])
+
+    train_val_dataset = AnnoRegionRndSampler(
+        img_anno_paths_train,
+        patch_size=cfg["dataset"]["patch_size"],
+        layer=cfg["dataset"]["layer"],
+        patches_from_one_region=cfg["dataset"]["patches_from_one_region"],
+        one_image_for_batch=cfg["training"]["one_image_for_batch"],
+        slide_bank=shared_bank,
+        device=device,
+    )
+    n_classes = cfg["model"]["n_classes"]
+    if len(train_val_dataset.classes) != n_classes:
+        print(
+            f"note: dataset has {len(train_val_dataset.classes)} classes, "
+            f"config says {n_classes}; using config."
+        )
+
+    # test set (ImageFolder extracted by --extract_test)
+    test_dir = Path(cfg["test"]["dir"])
+    test_data = None
+    if test_dir.is_dir():
+        test_images, test_labels, _ = utils.load_image_folder(test_dir)
+        test_data = (test_images, test_labels)
+    else:
+        print(f"test dir {test_dir} missing — run with --extract_test first; "
+              "skipping test evaluation.")
+
+    # multi-magnification configuration: patches from several pyramid layers
+    # stacked on the channel axis
+    sample_source = train_val_dataset
+    in_channels = 3
+    if mm_layers:
+        from ...samplers.multimag import make_multimag_sample_fn
+
+        sample_source = make_multimag_sample_fn(
+            train_val_dataset, mm_bank, cfg["training"]["batch_size"]
+        )
+        in_channels = 3 * len(mm_layers)
+        if test_data is not None:
+            print("note: test-set evaluation is single-magnification only; "
+                  "skipping it for the multi-mag configuration.")
+            test_data = None
+
+    # model + state. model.context > 0 trains the way fcn mode serves
+    # (context.py): labels stay per-patch, pixels are the patch + its real
+    # surroundings, the head reads the center feature block
+    context = cfg["model"].get("context", 0)
+    if context < 0 or context % 32:
+        raise ValueError("model.context must be a non-negative multiple of 32")
+    arch = cfg["model"].get("arch", "resnet")
+    model = get_model(
+        n_classes,
+        depth=cfg["model"].get("depth", 18),
+        stem=cfg["model"].get("stem", "imagenet"),
+        arch=arch,
+        width=cfg["model"].get("width", 1),
+        patch=cfg["model"].get("patch", 16),  # ViT token size
+        input_size=cfg["dataset"]["patch_size"] + 2 * context,
+        in_channels=in_channels,
+    )
+    init_model(model, pretrained=in_channels == 3 and arch == "resnet")
+    model = model.to(device)
+    train_model = model
+    if context:
+        if mm_layers:
+            raise ValueError("model.context is single-magnification only")
+        if arch != "resnet":
+            raise ValueError("model.context requires a ResNet-family backbone")
+        from .context import ContextWindowModel
+
+        train_model = ContextWindowModel(
+            model, patch_size=cfg["dataset"]["patch_size"], context=context
+        )
+        print(f"Context-consistent training: window = patch + 2*{context}")
+        if test_data is not None:
+            # disk test patches are bare patch_size crops; edge-replicate the
+            # surroundings ONCE (fcn serving's slide-border halo convention)
+            test_images, test_labels = test_data
+            test_images = np.pad(
+                test_images,
+                ((0, 0), (context, context), (context, context), (0, 0)),
+                mode="edge",
+            )
+            test_data = (test_images, test_labels)
+    if test_data is not None:  # to the device once, as uint8
+        test_data = (torch.from_numpy(test_data[0]).to(device),
+                     torch.from_numpy(test_data[1]).to(device))
+    state = create_train_state(
+        train_model,
+        cfg["training"]["lr"],
+        weight_decay=cfg["training"].get("weight_decay", 0.0),
+    )
+
+    scheduler = make_scheduler(cfg["training"])
+
+    start_epoch = 0
+    best_val_acc = 0.0
+    last_ckpt = save_dir / "last_state.msgpack"
+    if resume and last_ckpt.exists():
+        state, start_epoch, extra = load_train_state(last_ckpt, state)
+        best_val_acc = extra.get("best_val_acc", 0.0)
+        scheduler.lr = extra.get("lr", scheduler.lr)
+        if hasattr(scheduler, "best"):  # plateau state
+            scheduler.best = extra.get("sched_best")
+            scheduler.num_bad_epochs = extra.get("sched_bad_epochs", 0)
+        if hasattr(scheduler, "epoch"):  # warmup_cosine state
+            scheduler.epoch = extra.get("sched_epoch", start_epoch)
+        print(f"Resumed from epoch {start_epoch} (best val acc {best_val_acc:.4f})")
+
+    # schedules that don't start at the base LR (warmup) must be applied
+    # before the first epoch, not only after scheduler.step()
+    state = set_learning_rate(state, scheduler.lr)
+
+    _, eval_step = make_steps(train_model)
+
+    batch_size = cfg["training"]["batch_size"]
+    train_steps = cfg["training"].get(
+        "train_steps",
+        len(train_val_dataset) // batch_size * cfg["training"]["augment_factor"],
+    )
+    val_steps = cfg["training"]["val_steps"]
+
+    fused_epoch = make_fused_epoch(
+        train_model, sample_source, batch_size, train_steps,
+        crop_pad=cfg["training"].get("crop_pad", 0),
+        label_smoothing=cfg["training"].get("label_smoothing", 0.0),
+    )
+    fused_eval = make_fused_eval(train_model, sample_source, batch_size, val_steps)
+    seed = cfg["training"].get("seed", 0)
+
+    train_losses, val_losses, test_losses = [], [], []
+    train_accuracies, val_accuracies, test_accuracies = [], [], []
+
+    for epoch in range(start_epoch, cfg["training"]["n_epochs"]):
+        # ---- train (queued on the device, one read back) ----
+        t0 = time.time()
+        gen_train, gen_val = _epoch_generators(seed, epoch)
+        state, losses, corrects = fused_epoch(state, gen_train)
+        train_loss = float(losses.mean())
+        n_train_patches = train_steps * batch_size
+        train_acc = int(corrects.sum()) / n_train_patches
+        train_losses.append(train_loss)
+        train_accuracies.append(train_acc)
+        dt = time.time() - t0
+        train_pps = n_train_patches / dt
+        print(
+            f"Epoch {epoch + 1}/{cfg['training']['n_epochs']} "
+            f"({train_pps:.0f} patches/s)"
+        )
+        print(f"Train Loss: {train_loss:.4f}, Train Acc: {train_acc:.4f}")
+
+        # ---- val ----
+        v_losses, v_corrects = fused_eval(state, gen_val)
+        val_loss = float(v_losses.mean())
+        val_acc = int(v_corrects.sum()) / (val_steps * batch_size)
+        val_losses.append(val_loss)
+        val_accuracies.append(val_acc)
+        print(f"Val Loss: {val_loss:.4f}, Val Acc: {val_acc:.4f}")
+
+        new_lr = scheduler.step(val_loss)
+        state = set_learning_rate(state, new_lr)
+        print(f"Current Learning Rate: {scheduler.get_last_lr()[0]:.6f}")
+
+        if val_acc > best_val_acc:
+            best_val_acc = val_acc
+            save_model(out_dir / BEST_MODEL_FILE, model)
+
+        # ---- test ----
+        if test_data is not None:
+            test_loss, test_acc = _test_pass(state, eval_step, *test_data, batch_size)
+            test_losses.append(test_loss)
+            test_accuracies.append(test_acc)
+            print(f"Test Loss: {test_loss:.4f}, Test Acc: {test_acc:.4f}")
+
+        # ---- plots + metrics log + resume checkpoint ----
+        plotted = save_plot(train_losses, val_losses, test_losses, "Loss", "loss.jpg", out_dir)
+        save_plot(train_accuracies, val_accuracies, test_accuracies, "Acc", "acc.jpg", out_dir)
+        if not plotted and epoch == start_epoch:
+            print("matplotlib is not installed: loss.jpg and acc.jpg are skipped "
+                  "(metrics.csv holds the same numbers)")
+        t_loss = test_losses[-1] if test_losses else ""
+        t_acc = test_accuracies[-1] if test_accuracies else ""
+        append_metrics(
+            out_dir / "metrics.csv",
+            f"{epoch + 1},{train_loss:.6f},{train_acc:.6f},{val_loss:.6f},"
+            f"{val_acc:.6f},{t_loss},{t_acc},{scheduler.lr:.2e},{train_pps:.0f}\n",
+            fresh=epoch == start_epoch and not resume,
+        )
+        save_train_state(
+            last_ckpt,
+            state,
+            epoch + 1,
+            extra={
+                "best_val_acc": best_val_acc,
+                "lr": scheduler.lr,
+                "sched_best": getattr(scheduler, "best", None),
+                "sched_bad_epochs": getattr(scheduler, "num_bad_epochs", 0),
+                "sched_epoch": getattr(scheduler, "epoch", epoch + 1),
+            },
+        )
+
+    return {
+        "train_losses": train_losses,
+        "val_losses": val_losses,
+        "test_losses": test_losses,
+        "train_accuracies": train_accuracies,
+        "val_accuracies": val_accuracies,
+        "test_accuracies": test_accuracies,
+        "best_val_acc": best_val_acc,
+        "model": model,
+    }
+
+
+def main(argv=None):
+    # prefer a cwd-level config (the reference loads
+    # ./models/patch_cls_simple/config.yaml relative to the repo root);
+    # fall back to the packaged default
+    cwd_config = Path("./models/patch_cls_simple/config.yaml")
+    default_config = cwd_config if cwd_config.is_file() else CONFIG_PATH
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--extract_test", action="store_true", default=False)
+    parser.add_argument("--resume", action="store_true", default=False)
+    parser.add_argument("--config", type=Path, default=default_config)
+    args = parser.parse_args(argv)
+
+    cfg = utils.load_config(args.config)
+
+    if args.extract_test:
+        prepare_test_patches(cfg)
+
+    return train(cfg, resume=args.resume)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,9 @@ optimizer updates float32 weights. In train mode BatchNorm is flax's (see
 
 from __future__ import annotations
 
+import re
 from functools import partial
+from pathlib import Path
 from typing import Sequence
 
 import torch
@@ -163,7 +165,9 @@ class ResNet(nn.Module):
 
     stem: "imagenet" (7×7/2 conv padded (3, 3), then 3×3/2 max-pool padded
     (1, 1)) or "s2d" (4×4 space-to-depth of the input, then a 2×2 SAME
-    conv; the input extent must be a multiple of 4). Input is RGB."""
+    conv; the input extent must be a multiple of 4). Input is RGB, or
+    ``in_channels`` channels (9 for three magnifications stacked; flax infers
+    the stem's input channels from its first input)."""
 
     def __init__(
         self,
@@ -173,6 +177,7 @@ class ResNet(nn.Module):
         num_filters: int = 64,
         dtype: torch.dtype = torch.bfloat16,
         stem: str = "imagenet",
+        in_channels: int = 3,
     ):
         super().__init__()
         if stem not in ("imagenet", "s2d"):
@@ -181,10 +186,11 @@ class ResNet(nn.Module):
         self.num_filters = num_filters
         self.dtype = dtype
         self.stem = stem
+        self.in_channels = in_channels
         if stem == "s2d":
-            self.conv1 = SameConv2d(16 * 3, num_filters, 2)
+            self.conv1 = SameConv2d(16 * in_channels, num_filters, 2)
         else:
-            self.conv1 = CastConv2d(3, num_filters, 7, 2, padding=3, bias=False)
+            self.conv1 = CastConv2d(in_channels, num_filters, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(num_filters)
         self.stages: list[list[str]] = []
         cin = num_filters
@@ -247,13 +253,62 @@ def build_resnet(
     dtype: torch.dtype = torch.bfloat16,
     stem: str = "imagenet",
     width: int = 1,
+    in_channels: int = 3,
 ) -> ResNet:
     """ResNet by depth (18/34/50/101); ``width`` multiplies every stage's
-    channel count."""
+    channel count; ``in_channels`` input channels."""
     try:
         ctor = _DEPTHS[depth]
     except KeyError:
         raise ValueError(
             f"unsupported ResNet depth {depth}; choose from {sorted(_DEPTHS)}"
         ) from None
-    return ctor(num_classes=num_classes, dtype=dtype, stem=stem, num_filters=64 * width)
+    return ctor(num_classes=num_classes, dtype=dtype, stem=stem, num_filters=64 * width,
+                in_channels=in_channels)
+
+
+def _torchvision_file(depth: int, path=None) -> Path | None:
+    """``path``, or the first ``resnet{depth}-*.pth`` under torch hub's
+    ``checkpoints`` directory (where torchvision caches its downloads)."""
+    if path is not None:
+        return Path(path) if Path(path).is_file() else None
+    found = sorted((Path(torch.hub.get_dir()) / "checkpoints").glob(f"resnet{depth}-*.pth"))
+    return found[0] if found else None
+
+
+_TV_BLOCK = re.compile(r"^layer(\d)\.(\d+)\.(.+)$")
+
+
+@torch.no_grad()
+def load_torchvision_weights(model: ResNet, depth: int = 18, path=None) -> ResNet | None:
+    """Load torchvision's ImageNet ResNet weights into ``model``'s backbone
+    from a local file (the port of ``deephisto_tpu/models/resnet.py:
+    load_torchvision_weights``): ``path``, or the first
+    ``resnet{depth}-*.pth`` under ``torch.hub.get_dir()/checkpoints``, read
+    with ``torch.load(weights_only=True)``. torchvision's names map onto the
+    port's (``layer{s}.{j}.conv1`` → ``layer{s}_{j}.conv1``,
+    ``downsample.0``/``.1`` → ``downsample_conv``/``downsample_bn``); both
+    hold OIHW kernels. The randomly initialized ``fc`` is kept, as the
+    reference replaces it. Returns ``model``, or None when no file exists;
+    nothing is downloaded."""
+    f = _torchvision_file(depth, path)
+    if f is None:
+        return None
+    sd = torch.load(f, map_location="cpu", weights_only=True)
+    own = model.state_dict()
+    mapped = {}
+    for k, v in sd.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        m = _TV_BLOCK.match(k)
+        if m:
+            stage, j, rest = m.groups()
+            rest = rest.replace("downsample.0.", "downsample_conv.").replace(
+                "downsample.1.", "downsample_bn.")
+            k = f"layer{stage}_{j}.{rest}"
+        if k not in own or own[k].shape != v.shape:
+            raise ValueError(f"{f}: {k} {tuple(v.shape)} does not fit this ResNet-{depth}")
+        mapped[k] = v
+    for k, v in mapped.items():
+        own[k].copy_(v)
+    return model

@@ -1,4 +1,4 @@
-"""Device ops: patch gather (kernel K1, with its multi-slide uint8 mode and
+"""Device ops: preprocessing and flip augmentation, patch gather (kernel K1, with its multi-slide uint8 mode and
 its int8 mode, the int8 model's input quantize and stem layout fused in),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
 and the int8 convolution with its epilogue, the ResNet block's among its
@@ -12,6 +12,8 @@ from .attention import (
     flash_attention_qkv,
     flash_attention_ref,
 )
+from .augment import preprocess_batch, preprocess_batch_per_sample
+
 # the module's entry points; ``ops.conv_int8`` stays the module
 from .conv_int8 import (
     conv_f32,
@@ -61,6 +63,8 @@ __all__ = [
     "gather_quantize_int8",
     "gather_quantize_int8_ref",
     "map_footprint",
+    "preprocess_batch",
+    "preprocess_batch_per_sample",
     "scatter_add_map",
     "scatter_add_map_exact",
     "scatter_add_map_ref",

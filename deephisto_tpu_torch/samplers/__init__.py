@@ -1,15 +1,28 @@
-"""Patch samplers: the annotated-region random sampler over a device slide
-bank."""
+"""Patch samplers: the annotated-region random and dense samplers over a
+slide bank (on the device, or on the host), the test-set extraction, and the
+multi-magnification bank."""
 
 from .bank import SlideBank
-from .region import AnnoRegionRndSampler, RegionTable, build_region_table
+from .multimag import MultiMagBank, make_multimag_sample_fn, stack_mags_as_channels
+from .region import (
+    AnnoRegionDenseSampler,
+    AnnoRegionRndSampler,
+    RegionTable,
+    build_region_table,
+    extract_and_save_subset,
+)
 from .weights import area_weights, calc_weights
 
 __all__ = [
+    "AnnoRegionDenseSampler",
     "AnnoRegionRndSampler",
+    "MultiMagBank",
     "RegionTable",
     "SlideBank",
     "area_weights",
     "build_region_table",
     "calc_weights",
+    "extract_and_save_subset",
+    "make_multimag_sample_fn",
+    "stack_mags_as_channels",
 ]

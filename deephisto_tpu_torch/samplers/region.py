@@ -1,6 +1,7 @@
-"""Annotated-region random patch sampler, a port of
-``deephisto_tpu/samplers/region.py`` (``AnnoRegionRndSampler`` and its
-region table).
+"""Annotated-region patch samplers, a port of
+``deephisto_tpu/samplers/region.py``: ``AnnoRegionRndSampler`` with its
+region table and generator APIs, ``AnnoRegionDenseSampler`` and the test-set
+extraction ``extract_and_save_subset``.
 
 The region table's host construction (``_region_anchors``, ``_region_cells``,
 ``build_region_table``) is numpy, copied; the table then lives on the device.
@@ -14,8 +15,14 @@ fallback when all T miss; patches come from the device bank through kernel
 K1's multi-slide mode. torch's random streams are not JAX's, so the port is
 held to the same distributions, not the same draws.
 
-Not ported here (ROADMAP, queue A item 7): ``AnnoRegionDenseSampler``,
-``extract_and_save_subset``, the generator APIs and host-mode banks.
+The JAX ``jax_generator`` is :meth:`AnnoRegionRndSampler.device_generator`
+here (batches on the device); ``torch_generator`` and
+``torch_iterable_dataset`` keep their names (CPU tensors). With a host-mode
+bank the coordinates are still drawn on the device and the patches sliced on
+the host, as in the JAX package. ``extract_and_save_subset`` writes PNG, not
+JPEG: lossless, so the test set holds the sampled pixels exactly, and the
+machine with the card has no JPEG encoder; the JAX package's
+``load_image_folder`` reads ``*.png`` too.
 """
 
 from __future__ import annotations
@@ -23,15 +30,19 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._imageio import write_png
 from ..anno.parse import RegionAnnotation, parse_annotations
 from ..geometry import clip_area_boxes, pad_polygons
 from ..geometry.device import clip_area_batch
+from ..ops.augment import preprocess_batch
 from ..ops.gather import gather_multi_u8
+from ..slide import Patch
 from .bank import SlideBank
 from .weights import calc_weights
 
@@ -507,6 +518,12 @@ class AnnoRegionRndSampler:
         ``patch_size + 2*context`` window around it, clamped per image to the
         true layer bounds (see the JAX sampler's docstring)."""
         self._check_forced_cls(forced_cls)
+        if gather and not self.bank.on_device:
+            raise ValueError(
+                "make_sample_fn(gather=True) requires a device-resident SlideBank; "
+                "this bank is on the host. Use gather=False and gather on the "
+                "host, or sample_batch and the generator APIs, which handle host mode."
+            )
         if context and not gather:
             raise ValueError("context requires gather=True")
         if context < 0:
@@ -526,6 +543,8 @@ class AnnoRegionRndSampler:
         windows_u8`` over the device bank (kernel K1's multi-slide mode), for
         callers that sample coordinates separately (the fused epoch's
         presampling). ``context`` as in ``make_sample_fn``."""
+        if not self.bank.on_device:
+            raise ValueError("make_gather_fn requires a device-resident bank")
         ps = self.patch_size
         images = self.bank.images
         if context == 0:
@@ -545,8 +564,86 @@ class AnnoRegionRndSampler:
 
     def sample_batch(self, n: int, forced_cls: int | None = None):
         """One batch (patches_u8, labels, coords, img_idx) from the sampler's
-        own generator (seeded by ``seed``)."""
-        return self.make_sample_fn(n, forced_cls)(self._gen)
+        own generator (seeded by ``seed``). With a host-mode bank the
+        coordinates come from the device step and the patches from the
+        host."""
+        if self.bank.on_device:
+            return self.make_sample_fn(n, forced_cls)(self._gen)
+        labels, coords, img_idx = self.make_sample_fn(n, forced_cls, gather=False)(self._gen)
+        return self.bank.gather(img_idx, coords, self.patch_size), labels, coords, img_idx
+
+    # -- public generator API (reference parity) -----------------------------
+
+    def structs_generator(
+        self,
+        batch_size: int,
+        n_batches: int,
+        batches_per_worker: int = 2,
+        max_workers: int | None = None,
+        cls_idx: int | None = None,
+    ) -> Iterator[list[tuple[Patch, int]]]:
+        """Yield ``n_batches`` lists of (Patch, class_idx).
+
+        ``batches_per_worker`` / ``max_workers`` are accepted for API parity
+        with the process-pool reference (region_samplers.py:641-683) but are
+        no-ops: batches come from the device pipeline."""
+        for _ in range(n_batches):
+            patches, labels, coords, _ = self.sample_batch(batch_size, cls_idx)
+            data, lab, crd = patches.cpu().numpy(), labels.cpu().numpy(), coords.cpu().numpy()
+            yield [
+                (Patch(layer=self.layer, pos_x=int(crd[i, 1]), pos_y=int(crd[i, 0]),
+                       patch_size=self.patch_size, data=data[i]), int(lab[i]))
+                for i in range(batch_size)
+            ]
+
+    def device_generator(
+        self,
+        batch_size: int,
+        n_batches: int,
+        cls_idx: int | None = None,
+        augment: bool = False,
+        dtype: torch.dtype = torch.float32,
+    ):
+        """Device-resident fast path (the JAX ``jax_generator``): yields
+        (features, labels, coords) on the device, features normalized (and
+        with ``augment`` flip-augmented from the sampler's generator)."""
+        for _ in range(n_batches):
+            patches, labels, coords, _ = self.sample_batch(batch_size, cls_idx)
+            feats = preprocess_batch(patches, self._gen if augment else None, augment, dtype)
+            yield feats, labels, coords.float()
+
+    def torch_generator(
+        self,
+        batch_size: int,
+        n_batches: int,
+        batches_per_worker: int = 2,
+        transforms=None,
+        max_workers: int | None = None,
+        cls_idx: int | None = None,
+    ):
+        """Reference-parity torch output on the CPU: (features f32 NHWC /255,
+        labels int64, coords f32) per batch (region_samplers.py:685-738)."""
+        for feats, labels, coords in self.device_generator(batch_size, n_batches, cls_idx=cls_idx):
+            f = feats.cpu()
+            if transforms is not None:
+                f = transforms(f)
+            yield f, labels.cpu().long(), coords.cpu()
+
+    def torch_iterable_dataset(self):
+        """Infinite torch IterableDataset over single patches
+        (region_samplers.py:740-786; coords fixed to (y, x))."""
+        from torch.utils.data import IterableDataset
+
+        sampler = self
+
+        class _DS(IterableDataset):
+            def __iter__(self):
+                while True:
+                    for f, lab, c in sampler.torch_generator(sampler.patches_from_one_region, 1):
+                        for i in range(f.shape[0]):
+                            yield f[i], lab[i], c[i]
+
+        return _DS()
 
     def __len__(self):
         """Approximate dataset size (reference region_samplers.py:788-796)."""
@@ -555,3 +652,181 @@ class AnnoRegionRndSampler:
             sum(sum(r.area for r in lst) for lst in self.regions.values())
             / (ps * ps)
         )
+
+
+# ---------------------------------------------------------------------------
+# Dense region sampler
+# ---------------------------------------------------------------------------
+
+
+class AnnoRegionDenseSampler:
+    """Deterministic dense-grid patch extraction over annotated regions
+    (reference region_samplers.py:799-871): for each class, each region, every
+    stride-grid patch whose exact intersection area qualifies, in order.
+    ``device`` as for :class:`AnnoRegionRndSampler`."""
+
+    def __init__(
+        self,
+        img_anno_paths: list[tuple[Path, Path]],
+        layer: int,
+        patch_size: int,
+        stride: int,
+        region_intersection: float = 0.75,
+        classes: list[str] | None = None,
+        slide_bank: SlideBank | None = None,
+        verbose: bool = True,
+        device=None,
+    ):
+        self.img_anno_paths = img_anno_paths
+        self.layer = layer
+        self.patch_size = patch_size
+        self.stride = stride
+        self.region_intersection = region_intersection
+        self.regions, _ = parse_annotations(
+            img_anno_paths, layer=layer, classes=classes, verbose=verbose
+        )
+        self.classes = sorted(self.regions.keys())
+        self.bank = slide_bank or SlideBank(
+            [p for p, _ in img_anno_paths], layer=layer, device=device
+        )
+        self.device = self.bank.device
+
+    def _region_coords(self, reg: RegionAnnotation) -> np.ndarray:
+        """Qualifying dense-grid (y, x) coords for one region — the vectorized
+        equivalent of reference region_samplers.py:145-191."""
+        ps = self.patch_size
+        h, w = reg.layer_size
+        x0, y0, x1, y1 = (round(v) for v in reg.bounds)
+        x1 = min(x1, w - ps)
+        y1 = min(y1, h - ps)
+        ys = np.arange(y0, y1, self.stride)
+        xs = np.arange(x0, x1, self.stride)
+        if len(ys) == 0 or len(xs) == 0:
+            return np.zeros((0, 2), dtype=np.int32)
+        yy, xx = np.meshgrid(ys, xs, indexing="ij")
+        cand = np.stack([yy.ravel(), xx.ravel()], axis=1)
+        boxes = np.stack(
+            [cand[:, 1], cand[:, 0], cand[:, 1] + ps, cand[:, 0] + ps], axis=1
+        ).astype(np.float64)
+        areas = clip_area_boxes(reg.vertices_layer, boxes)
+        ok = areas > ps * ps * self.region_intersection
+        return cand[ok].astype(np.int32)
+
+    def all_coords(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Every qualifying patch of the dense pass, precomputed:
+        (coords (N, 2), labels (N,), image_idx (N,)) in the reference's
+        class-by-class, region-by-region order."""
+        coords_l, labels_l, imgs_l = [], [], []
+        for cls_idx, cls in enumerate(self.classes):
+            for reg in self.regions[cls]:
+                c = self._region_coords(reg)
+                if len(c):
+                    coords_l.append(c)
+                    labels_l.append(np.full((len(c),), cls_idx, dtype=np.int32))
+                    imgs_l.append(np.full((len(c),), reg.image_idx, dtype=np.int32))
+        if not coords_l:
+            z = np.zeros((0,), np.int32)
+            return np.zeros((0, 2), np.int32), z, z
+        return (
+            np.concatenate(coords_l),
+            np.concatenate(labels_l),
+            np.concatenate(imgs_l),
+        )
+
+    def structs_generator(self) -> Iterator[tuple[Patch, int]]:
+        """Yield every qualifying (Patch, class_idx), class by class, region by
+        region (reference region_samplers.py:866-871), gathering from the
+        bank in chunks."""
+        chunk = 256
+        for cls_idx, cls in enumerate(self.classes):
+            for reg in self.regions[cls]:
+                coords = self._region_coords(reg)
+                for s in range(0, len(coords), chunk):
+                    c = coords[s : s + chunk]
+                    sidx = np.full((len(c),), reg.image_idx, dtype=np.int32)
+                    data = self.bank.gather(sidx, c, self.patch_size).cpu().numpy()
+                    for i in range(len(c)):
+                        yield (
+                            Patch(layer=self.layer, pos_x=int(c[i, 1]), pos_y=int(c[i, 0]),
+                                  patch_size=self.patch_size, data=data[i]),
+                            cls_idx,
+                        )
+
+    def device_generator(self, batch_size: int, dtype: torch.dtype = torch.float32):
+        """Batched pass over every qualifying patch on the device (the JAX
+        ``jax_generator``): yields (features, labels, coords) with the last
+        batch padded by repeating the final patch (same rule as the full dense
+        sampler, reference full_samplers.py:400-402)."""
+        coords, labels, img_idx = self.all_coords()
+        n = len(coords)
+        if n == 0:
+            return
+        pad = (-n) % batch_size
+        if pad:
+            coords = np.concatenate([coords, np.repeat(coords[-1:], pad, 0)])
+            labels = np.concatenate([labels, np.repeat(labels[-1:], pad)])
+            img_idx = np.concatenate([img_idx, np.repeat(img_idx[-1:], pad)])
+        for s in range(0, len(coords), batch_size):
+            c = coords[s : s + batch_size]
+            patches = self.bank.gather(img_idx[s : s + batch_size], c, self.patch_size)
+            yield (
+                preprocess_batch(patches, dtype=dtype),
+                torch.from_numpy(labels[s : s + batch_size]).to(self.device),
+                torch.from_numpy(c.astype(np.float32)).to(self.device),
+            )
+
+
+# ---------------------------------------------------------------------------
+# Test-set extraction
+# ---------------------------------------------------------------------------
+
+
+def extract_and_save_subset(
+    img_anno_paths: list[tuple[Path, Path]],
+    out_folder: Path,
+    patch_size: int,
+    layer: int,
+    patches_per_class: int,
+    intersection: float = 0.95,
+    seed: int = 0,
+    device=None,
+):
+    """Build an ImageFolder-layout patch dataset on disk,
+    ``out_folder/<class_idx>/<count>.png`` (reference region_samplers.py:874-909,
+    which wrote JPEG) — with the class-forcing bug fixed, so class-k folders
+    really contain class-k patches. A class whose regions cannot host a
+    patch at ``intersection`` leaves an empty folder."""
+    sampler = AnnoRegionRndSampler(
+        img_anno_paths=img_anno_paths,
+        layer=layer,
+        patch_size=patch_size,
+        region_intersection=intersection,
+        region_area_influence=0,  # equal weights for all regions
+        patches_from_one_region=1,  # only one patch per region
+        seed=seed,
+        device=device,
+    )
+
+    batch_size = 4
+    out_folder = Path(out_folder)
+    for cls_idx, cls in enumerate(sampler.classes):
+        (out_folder / str(cls_idx)).mkdir(parents=True, exist_ok=True)
+        try:
+            sampler._check_forced_cls(cls_idx)
+        except ValueError as e:
+            # skip-and-report tolerance (the reference's failure semantics):
+            # a class whose regions can't host a patch at this intersection
+            # yields an empty folder instead of aborting the run
+            print(f"skipping class {cls}: {e}")
+            continue
+        # ceil + cap: floor division would save 0 patches for
+        # patches_per_class < batch_size and silently drop the remainder
+        n = -(-patches_per_class // batch_size)
+        count = 0
+        for batch in sampler.structs_generator(batch_size=batch_size, n_batches=n, cls_idx=cls_idx):
+            for patch, _ in batch:
+                if count >= patches_per_class:
+                    break
+                write_png(out_folder / str(cls_idx) / f"{count}.png", patch.data)
+                count += 1
+    return out_folder

@@ -4,7 +4,7 @@
 from pathlib import Path
 
 from .array_slide import ArraySlide
-from .base import Slide, build_pyramid
+from .base import Patch, Slide, build_pyramid
 from .dhs import DHSlide, write_dhs
 from .synthetic import (
     DEFAULT_CLASSES,
@@ -16,6 +16,7 @@ from .synthetic import (
 __all__ = [
     "ArraySlide",
     "DHSlide",
+    "Patch",
     "Slide",
     "build_pyramid",
     "write_dhs",

@@ -1,7 +1,7 @@
 """Slide abstraction: pyramidal gigapixel images, copied from
 ``deephisto_tpu/slide/base.py`` without what the port does not call: the
 PIL previews (``to_image``, ``get_region``; the machine with the card has no
-PIL), the ``Patch`` record of the generator APIs and ``mmap_layer``.
+PIL) and ``mmap_layer``.
 
 The reference consumes the external ``psimage`` package (PSImage objects used at
 reference patch_samplers/region_samplers.py:10-11 and full_samplers.py:11-12).
@@ -19,7 +19,25 @@ pixels.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass
+class Patch:
+    """One extracted patch (mirror of psimage's Patch dataclass used at
+    reference region_samplers.py:508-523)."""
+
+    layer: int
+    pos_x: int
+    pos_y: int
+    patch_size: int
+    data: np.ndarray  # HWC uint8
+
+    @property
+    def pos(self) -> tuple[int, int]:
+        return (self.pos_y, self.pos_x)
 
 
 class Slide:

@@ -1,5 +1,15 @@
-"""Training utilities: train state, learning-rate schedules, metrics."""
+"""Training utilities: train state, learning-rate schedules, metrics, and
+checkpoints in the JAX package's flax msgpack format."""
 
+from .checkpoint import (
+    BEST_MODEL_FILE,
+    load_model,
+    load_train_state,
+    load_variables,
+    model_variables,
+    save_model,
+    save_train_state,
+)
 from .metrics import accuracy, cross_entropy_loss
 from .state import (
     ReduceLROnPlateau,
@@ -11,12 +21,19 @@ from .state import (
 )
 
 __all__ = [
+    "BEST_MODEL_FILE",
     "ReduceLROnPlateau",
     "TrainState",
     "WarmupCosine",
     "accuracy",
     "create_train_state",
     "cross_entropy_loss",
+    "load_model",
+    "load_train_state",
+    "load_variables",
     "make_scheduler",
+    "model_variables",
+    "save_model",
+    "save_train_state",
     "set_learning_rate",
 ]

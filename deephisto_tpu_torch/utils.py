@@ -1,5 +1,6 @@
-"""Dataset path listing, copied from ``deephisto_tpu/utils.py`` (mirror of
-reference utils.py:1-14, extended to the DHS format)."""
+"""Dataset path resolution, copied from ``deephisto_tpu/utils.py`` (mirror of
+reference utils.py:1-14, extended to the DHS format and with a
+synthetic-dataset fallback for missing datasets)."""
 
 from __future__ import annotations
 
@@ -27,3 +28,15 @@ def get_img_ano_paths(
     ]
     return list(zip(img_paths, anno_paths))
 
+
+def resolve_dataset(ds_folder: Path | str, **synthetic_kwargs) -> Path:
+    """Return ``ds_folder`` if it exists, else materialize the synthetic
+    dataset there (so every entry point runs without real data)."""
+    ds_folder = Path(ds_folder)
+    if (ds_folder / "images").is_dir() and not (
+        ds_folder / ".synthetic_complete.json"
+    ).is_file():
+        return ds_folder
+    from .data.synthetic_dataset import ensure_synthetic_dataset
+
+    return ensure_synthetic_dataset(ds_folder, **synthetic_kwargs)

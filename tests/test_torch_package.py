@@ -33,17 +33,30 @@ INT8_MODULES = {
     f"deephisto_tpu_torch.{m}" for m in ("models.quantize", "ops.conv_int8", "predict.fcn")
 }
 
+# the training program's modules: checkpoints, codecs, the CLI and its helpers
+CLI_MODULES = {
+    f"deephisto_tpu_torch.{m}" for m in (
+        "_imageio", "ops.augment", "samplers.multimag", "train._msgpack", "train.checkpoint",
+        "models.patch_cls_simple.context", "models.patch_cls_simple.predict",
+        "models.patch_cls_simple.utils",
+    )
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Nor the host libraries the card's machine lacks: msgpack, yaml and
+    torchvision never, PIL and matplotlib only inside the functions that
+    need them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import deephisto_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({sorted(TRAINING_MODULES | INT8_MODULES)}) - set(names)\n"
+        f"missing = set({sorted(TRAINING_MODULES | INT8_MODULES | CLI_MODULES)}) - set(names)\n"
         "assert len(names) >= 36 and not missing, (names, missing)\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'deephisto_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'deephisto_tpu', 'msgpack', 'yaml', "
+        "'torchvision', 'PIL', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

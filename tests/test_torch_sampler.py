@@ -85,8 +85,11 @@ def test_slides_and_bank_read_as_the_jax_package_reads_them(pairs):
     assert bank.images.dtype == torch.uint8
     np.testing.assert_array_equal(bank.images.numpy(), np.asarray(want.images))
     np.testing.assert_array_equal(bank.layer_hw_arr, want.layer_hw_arr)
-    with pytest.raises(ValueError, match="host-mode bank is not ported"):
-        SlideBank([p for p, _ in pairs], layer=LAYER, device="cpu", budget_bytes=1000)
+    # over its budget the bank stays on the host, as the JAX package's does
+    host = SlideBank([p for p, _ in pairs], layer=LAYER, device="cpu", budget_bytes=1000)
+    jax_host = JaxBank([p for p, _ in pairs], layer=LAYER, budget_bytes=1000)
+    assert not host.on_device and not jax_host.on_device
+    np.testing.assert_array_equal(host.images, jax_host.images)
 
 
 def test_region_table_and_weights_equal_jax(pairs, sampler):
