@@ -9,13 +9,17 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
    shapes: K1 (gather + /255) bit-equal in f32 and bf16; K1's int8 mode
    (the int8 model's input quantize and stem layout fused into the gather)
    bit-equal in its three layouts at the int8 paths' shapes (s2d4: an exact
-   batch; s2d8_to_s2d4: an fcn headline step; hwc: an fcn pack-4 step and a
-   PackedSlide batch), timed beside its byte bound and the parent's
+   batch; s2d8_to_s2d4: an fcn headline step; hwc: an fcn pack-4 step, a
+   PackedSlide batch, and on the raw 3-channel slide a batch of 64 windows
+   of 224² and a step of 16 tiles of 1152², the predict CLI's ``--int8``
+   and ``--int8 --fcn`` calls), timed beside its byte bound and the parent's
    composition (the uint8 gather or tile copy, the quantize and the pack as
    torch ops); K2 (stitch) bit-equal to the sequential loop and identical
    from run to run (the main path's batches, spans, the map's last rows, a
-   wrapping batch, N = 1 and 2,000, a band of one tile row), timed beside its
-   byte bound, the library call and an empty launch on its grid;
+   wrapping batch, N = 1 and 2,000, a band of one tile row, and the random
+   predicts' coverage accumulator: (8192/16)² × 1, footprint 15, batch 64,
+   corners at the bottom and right edges), timed beside its byte bound, the
+   library call and an empty launch on its grid;
 4. main path: ``predict_full_fused`` on a seeded 16384² uint8 slide with a
    seeded full-width bf16 ResNet-18 (5 classes, batch 256): one warm-up run,
    then the best of 3; patches/s, peak memory, and the launch counts of both
@@ -110,7 +114,32 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     of the tensors its ``save_model`` was given, and the share of map cells where the two agree; and
     ``config_resnet50_multimag.yaml`` (ResNet-50 on 9 channels, layers 1, 2,
     4) for 1 epoch of 10 steps: 3 K1 launches a step, BatchNorm statistics
-    moved.
+    moved;
+20. the predict CLI (``deephisto_tpu_torch.examples.predict_full_patched``)
+    at its own settings (layer 2 of phase 4's slide written as a DHS
+    dataset, so an 8192² input, batch 64, downscale 16) from a checkpoint of
+    the seeded ResNet-18 written by ``save_model``, in each mode: random
+    (default), ``--dense``, ``--host_loop`` (random and dense), ``--int8``
+    (random and dense) and ``--int8 --fcn``, then the dense sampler in
+    ONDISK mode through ``process_on_device``. Each: the kernels it
+    launched (K1 and K2 on the fused modes, K6 under ``--int8``) and no
+    call of a plain version, the three PNGs (512², the overlay by its
+    formula), patches/s, peak memory, busy share (its predict call again
+    under the profiler; the host loops timed under it, not on the host
+    clock), the host syncs torch sees in a fused predict call
+    (``torch.cuda.set_sync_debug_mode``), the host seconds of the layer-1
+    resize and the PNG writes. ``--dense`` and ``--int8 --dense`` bit-equal
+    to ``predict_full_fused`` with the same arguments; random and ``--int8``
+    random at filled 1.0 within ``max_steps``, every coverage cell ≥ 1,
+    their maps, scores and coverage bit-equal to a replay of their own draws
+    through the plain K1 and K2 (and, for the int8 model, K1's plain int8
+    mode and K6's plain version); K6 against its plain version on every
+    conv of one ``--int8 --dense`` batch (64 × 224², the imagenet stem's
+    7×7/2 on 3 channels included) and of one ``--int8 --fcn`` tile batch
+    (16 × 1152²) of the CLI's quantized model, in its own mode and in the
+    f32 and int8 modes, bit-equal, two runs identical; ``--host_loop`` dense
+    against ``--dense`` ≥ 99.9 % of cells; the fcn map's agreement with
+    exact int8 (reported).
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -357,6 +386,30 @@ def check_k2(dense, device):
             raise AssertionError(f"K2 differs from its plain version ({name})")
         print(f"K2 scatter_add_map [{name}]: bit-equal to the plain loop, two runs identical")
 
+    # the random predicts' coverage accumulator (phase 20's shape): a
+    # (8192/16)² × 1 map of counts, footprint 15, batch 64, a quarter of the
+    # corners each at the bottom edge, the right edge and the bottom-right
+    # corner, their cells past the edges dropped
+    cov = PRED_SIDE // 16
+    q = PRED_BS // 4
+    near = lambda: rng.integers(cov - 15, cov, q)  # noqa: E731
+    anywhere = lambda: rng.integers(0, cov, q)  # noqa: E731
+    cov_cds = torch.from_numpy(np.concatenate([
+        np.stack([near(), anywhere()], 1), np.stack([anywhere(), near()], 1),
+        np.stack([near(), near()], 1), np.stack([anywhere(), anywhere()], 1)]).astype(np.int32))
+    cov_cds = cov_cds.to(device)
+    ones = torch.ones((len(cov_cds),), device=device)
+    cov_base = torch.randint(0, 3, (cov, cov, 1), device=device, generator=gen).float()
+    runs = [scatter_add_map(cov_base.clone(), cov_cds, ones, PS // 16 + 1) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = scatter_add_map_ref(cov_base.clone(), cov_cds, ones, PS // 16 + 1)
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], want)):
+        raise AssertionError("K2 differs from its plain version on the coverage accumulator")
+    cov_ms = cuda_ms(lambda i: scatter_add_map(cov_base, cov_cds, ones, PS // 16 + 1), 50)
+    print(f"K2 scatter_add_map [coverage {cov}x{cov}x1, f {PS // 16 + 1}, batch {len(cov_cds)}, "
+          f"corners at the bottom and right edges]: bit-equal to the plain loop, two runs "
+          f"identical; {cov_ms:.4f} ms")
+
     # timing: one main-path batch (the first 256 tiles of the dense grid)
     cds = (dense[:BS] // D).to(device)
     vals = torch.randn((BS, N_CLASSES), device=device, generator=gen)
@@ -392,6 +445,7 @@ def check_k2(dense, device):
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": library_ms, "empty_launch_ms": empty_ms, "wrapping_batch_ms": wrap_ms,
+        "coverage_batch_ms": cov_ms,
     }
 
 
@@ -540,8 +594,10 @@ def check_k1_int8(slide, dense, device):
     * ``s2d8_to_s2d4``: the fcn headline, 16 tiles of the pack-8 pre-tiled
       staging (144² cells of 192 bytes);
     * ``hwc``: the fcn pack-4 row, 16 tiles of the pack-4 staging (288²
-      cells of 48 bytes), and a ``PackedSlide`` batch (256 windows of 56²
-      cells), checked only."""
+      cells of 48 bytes); checked only: a ``PackedSlide`` batch (256
+      windows of 56² cells) and, on the raw 3-channel slide, the predict
+      CLI's imagenet-stem calls: ``--int8`` (64 windows of 224²) and
+      ``--int8 --fcn`` (16 tiles of 1152² at the tile grid's corners)."""
     from deephisto_tpu_torch.ops import (
         gather_multi_u8,
         gather_quantize_int8,
@@ -588,6 +644,9 @@ def check_k1_int8(slide, dense, device):
     packed_slide = stage_packed_slide(slide, keep_raw=False, device=device).packed
     checks = [(b, s[0], c[0], ps, lay) for b, s, c, ps, lay, _ in cases.values()]
     checks.append((packed_slide[None], one, dense[:BS].numpy() // 4, PS // 4, "hwc"))
+    checks.append((slide[None], one[:PRED_BS], dense[:PRED_BS].numpy(), PS, "hwc"))
+    checks.append((slide[None], np.zeros(FCN_TB, np.int32), tile_batch(0)[1] * 4,
+                   FCN_TILE + 2 * FCN_HALO, "hwc"))
     out = {}
     for bank, sidx, coords, ps, layout in checks:
         # odd, clamped and negative starts on the first windows
@@ -838,28 +897,36 @@ def profile_main_path(slide, model) -> dict:
     return profile_device(lambda: predict_full_fused(slide, model, N_CLASSES))
 
 
-def profile_device(fn) -> dict:
+def profile_device(fn, cpu: bool = True) -> dict:
     """Device time of ``fn()`` by kernel group, and the card's busy share
-    (union of kernel intervals over the profiled wall time)."""
+    (union of kernel intervals over the profiled wall time). ``cpu=False``
+    traces the card only (no host operators: a cheaper trace of a long
+    host loop). A trace that holds no device event (the tracer sometimes
+    drops a trace of a few tens of µs) is taken again, up to 3 times."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans, groups, names, counts = [], {}, {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, dur = e.time_range.start, e.time_range.elapsed_us()
-        spans.append((start, start + dur))
-        group = next((g for k, g in KERNEL_GROUPS if k in e.name.lower()), "other")
-        groups[group] = groups.get(group, 0.0) + dur
-        counts[group] = counts.get(group, 0) + 1
-        names[e.name[:90]] = names.get(e.name[:90], 0.0) + dur
-    if not spans:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, groups, names, counts = [], {}, {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            start, dur = e.time_range.start, e.time_range.elapsed_us()
+            spans.append((start, start + dur))
+            group = next((g for k, g in KERNEL_GROUPS if k in e.name.lower()), "other")
+            groups[group] = groups.get(group, 0.0) + dur
+            counts[group] = counts.get(group, 0) + 1
+            names[e.name[:90]] = names.get(e.name[:90], 0.0) + dur
+        if spans:
+            break
+        print(f"profile_device: trace {attempt + 1} of {wall_us:.0f} µs holds no device event")
+    else:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -1117,12 +1184,35 @@ def _equal(got, want) -> bool:
     return all(g.dtype == v.dtype and torch.equal(g, v) for g, v in zip(got, want))
 
 
+def check_k6_call(mode, args) -> dict:
+    """K6 against its plain version on one recorded call: in its own mode (a
+    block call in its residual kind and output) and in both f32 and int8
+    modes, bit-equal (by value), two runs identical. Returns the outputs by
+    mode."""
+    x, w, stride = args[:3]
+    modes = [("f32", args[:6]), ("int8", args[:6])]
+    if mode == "block":
+        modes.append(("block", args))
+    outs = {}
+    for m, margs in modes:
+        got = _run_k6(m, margs)
+        again = _run_k6(m, margs)
+        torch.cuda.synchronize()
+        if not _equal(got, again):
+            raise AssertionError(f"K6 is not deterministic at {tuple(x.shape)} ({m})")
+        if not _equal(got, _plain_k6(m, margs)):
+            raise AssertionError(f"K6 differs from its plain version at {tuple(x.shape)} "
+                                 f"x {tuple(w.shape)} stride {stride} mode {m} "
+                                 f"{args[7] if m == 'block' else ''} "
+                                 f"{args[10] if m == 'block' else ''}")
+        outs[m] = got
+    return outs
+
+
 def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
     """K6 against its plain version on the recorded calls of each path (the
     convs of one batch of the exact path and of one tile batch of the fcn
-    path): each call in its own mode (a block call in its residual kind and
-    output) and in both f32 and int8 modes, bit-equal (by value), two runs
-    identical; each distinct call timed in its own mode beside its bound,
+    path; ``check_k6_call``); each distinct call timed in its own mode beside its bound,
     its plain version and two yardsticks that are not the same function
     (``torch._int_mm`` on the im2col'd operand, and cuDNN's bf16 conv of the
     same shape), with its design. Returns (the kernels-line entry, per-path
@@ -1134,23 +1224,8 @@ def check_k6(calls_by_path: dict) -> tuple[dict, dict]:
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, int_mm_ms=0.0,
                    cudnn_bf16_ms=0.0, calls=len(calls), designs={})
         for mode, args in calls:
-            x, w, stride, pads, a, b = args[:6]
-            modes = [("f32", args[:6]), ("int8", args[:6])]
-            if mode == "block":
-                modes.append(("block", args))
-            outs = {}
-            for m, margs in modes:
-                got = _run_k6(m, margs)
-                again = _run_k6(m, margs)
-                torch.cuda.synchronize()
-                if not _equal(got, again):
-                    raise AssertionError(f"K6 is not deterministic at {tuple(x.shape)} ({m})")
-                if not _equal(got, _plain_k6(m, margs)):
-                    raise AssertionError(f"K6 differs from its plain version at {tuple(x.shape)} "
-                                         f"x {tuple(w.shape)} stride {stride} mode {m} "
-                                         f"{args[7] if m == 'block' else ''} "
-                                         f"{args[10] if m == 'block' else ''}")
-                outs[m] = got
+            x, w, stride, pads = args[:4]
+            outs = check_k6_call(mode, args)
             epi = args[6:]
             label = mode if mode != "block" else f"block {epi[1]} -> {epi[4]}"
             design = k6.conv_design(x.shape[3])
@@ -1350,7 +1425,8 @@ def time_b6(device) -> dict:
     the window ensemble (``_window_ensemble``) of one fcn predict at the
     16384² slide's shapes (a (512, 512, 5) f32 logit map, (506, 506, 5)
     window logits, a (1024, 1024) map), each timed beside its byte bound
-    (inputs read once, outputs written once), with its kernel launches."""
+    (inputs read once, outputs written once), with its kernel launches a
+    call (counted in one trace of 20 calls)."""
     from deephisto_tpu_torch.predict import fcn
 
     ft, t = FCN_TILE // 32, -(-MAIN_SIDE // FCN_TILE)
@@ -1362,11 +1438,11 @@ def time_b6(device) -> dict:
                               logit_map.numel() * 4 + k * k * N_CLASSES * 4),
              "window_ensemble": (lambda i: fcn._window_ensemble(wlog, wf, up, k, k, m, m),
                                  wlog.numel() * 4 + m * m * (N_CLASSES * 4 + 1))}
-    out = {}
+    out, reps = {}, 20
     for name, (fn, nbytes) in calls.items():
-        prof = profile_device(lambda: fn(0))
+        prof = profile_device(lambda: [fn(i) for i in range(reps)])
         out[name] = {"ms": cuda_ms(fn, 20), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "launches": sum(prof["group_launches"].values())}
+                     "launches": sum(prof["group_launches"].values()) / reps}
     print(f"B6 (torch ops) of one {MAIN_SIDE}^2 fcn predict: {json.dumps(out)}")
     return out
 
@@ -1755,6 +1831,439 @@ def train_cli_phase(root: Path, sampler, device) -> dict:
     return out
 
 
+# ---- the predict CLI (phase 20) -----------------------------------------
+
+PRED_LAYER, PRED_BS = 2, 64  # the predict CLI's layer and batch
+PRED_SIDE = MAIN_SIDE // PRED_LAYER  # its input: the 16384² slide's layer 2
+PRED_MAP = PRED_SIDE // D  # its class map's side (downscale 16)
+# the CLI's modes by their flags
+PRED_MODES = {
+    "dense": {"dense": True}, "random": {}, "host_loop_random": {"host_loop": True},
+    "host_loop_dense": {"host_loop": True, "dense": True}, "int8_random": {"int8": True},
+    "int8_dense": {"int8": True, "dense": True}, "int8_fcn": {"int8": True, "fcn": True},
+}
+# --host_loop dense against --dense (phase 20): the same bf16 inputs and
+# batches, but the host loop stitches the last batch's padding (repeats of
+# the last patch) as the reference does, which moves the cells under the last
+# patch (196 of 512², 0.075 %)
+HOST_LOOP_AGREE = 0.999
+# the plain versions of the kernels, as ops modules name them
+PLAIN_VERSIONS = (("gather", "gather_normalize_ref"), ("gather", "gather_patches_multi"),
+                  ("gather", "gather_quantize_int8_ref"), ("stitch", "scatter_add_map_ref"),
+                  ("conv_int8", "conv_int8_ref"), ("conv_int8", "conv_int8_block_ref"))
+
+
+class PredictSpy:
+    """While active, wraps the predict CLI's callees: its predict call (one
+    of ``predict_full_fused``, ``predict_full_random_fused``,
+    ``predict_full_fcn``, ``ImagePredictorPatched.process``) is timed after
+    a synchronize and kept (``call``), or with ``profile`` timed under the
+    profiler (the card only); the resize of the slide's layer 1 and the PNG
+    writes are timed on the host; each random step's draws are recorded;
+    every call of a kernel's plain version is counted (``plain``)."""
+
+    def __init__(self, profile: bool = False):
+        self.profile = profile
+        self.seconds: dict[str, float] = {}
+        self.draws: list = []
+        self.plain: dict[str, int] = {}
+        self.prof = None
+
+    def _predict(self, name, fn):
+        def call(*a, **k):
+            if self.profile:
+                out = []
+                self.prof = profile_device(lambda: out.append(fn(*a, **k)), cpu=False)
+                self.seconds["predict"] = self.prof["wall_ms"] / 1e3
+                self.predict_fn = name
+                return out[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds["predict"] = time.perf_counter() - t0
+            self.predict_fn, self.call = name, (fn, a, k)
+            return out
+        return call
+
+    def _host(self, name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    def __enter__(self):
+        import importlib
+
+        from deephisto_tpu_torch.examples import predict_full_patched as cli
+        from deephisto_tpu_torch.predict import full_patched
+        from deephisto_tpu_torch.samplers import full
+        from deephisto_tpu_torch.slide import base
+
+        self._saved = []
+
+        def patch(obj, name, new):
+            self._saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, new)
+
+        for n in ("predict_full_fused", "predict_full_random_fused", "predict_full_fcn"):
+            patch(cli, n, self._predict(n, getattr(cli, n)))
+        patch(full_patched.ImagePredictorPatched, "process",
+              self._predict("ImagePredictorPatched.process", full_patched.ImagePredictorPatched.process))
+        patch(base, "_resize_uint8", self._host("resize_s", base._resize_uint8))
+        patch(full_patched, "write_png", self._host("png_s", full_patched.write_png))
+        draws = full._rnd_draws
+
+        def record(*a):
+            out = draws(*a)
+            self.draws.append(tuple(t.clone() for t in out))
+            return out
+
+        patch(full, "_rnd_draws", record)
+        for mod, name in PLAIN_VERSIONS:
+            m = importlib.import_module(f"deephisto_tpu_torch.ops.{mod}")
+
+            def counted(*a, _fn=getattr(m, name), _name=name, **k):
+                self.plain[_name] = self.plain.get(_name, 0) + 1
+                return _fn(*a, **k)
+            patch(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+
+
+def pred_dataset(root: Path, device) -> Path:
+    """A dataset whose one test slide is phase 4's seeded slide (16384²),
+    written as DHS with layers 1, 2, 4 and an empty annotation file, under
+    a folder without the synthetic marker."""
+    from deephisto_tpu_torch.slide import write_dhs
+
+    ds = root / "predict_ds"
+    (ds / "annotations" / "test").mkdir(parents=True)
+    (ds / "annotations" / "test" / "test_00.json").write_text("[]")
+    write_dhs(seeded_slide(device).cpu().numpy(), ds / "images" / "test" / "test_00.dhs",
+              max_layer=4)
+    return ds
+
+
+def replay_random(image, model, draws, steps):
+    """The random predict's first ``steps`` steps on the recorded ``draws``
+    through the plain K1 (for the int8 model its int8 mode, in the model's
+    layout), the plain K2 (the sequential loop) and, for the int8 model,
+    K6's plain version → (score map, coverage)."""
+    from deephisto_tpu_torch.ops.gather import gather_normalize_ref, gather_quantize_int8_ref
+    from deephisto_tpu_torch.ops.stitch import scatter_add_map_ref
+    from deephisto_tpu_torch.samplers import full
+
+    dev = image.device
+    lut = getattr(model, "input_lut", None)
+    if lut is not None:
+        layout, pre_packed = model.input_layout(False)
+        kwargs = {"pre_packed": pre_packed} if pre_packed else {}
+        one_slide = torch.zeros((PRED_BS,), dtype=torch.int32, device=dev)
+    score = torch.zeros((PRED_MAP, PRED_MAP, N_CLASSES), device=dev)
+    accum = torch.zeros((PRED_SIDE // 16, PRED_SIDE // 16, 1), device=dev)
+    it = iter(draws)
+    saved, full._rnd_draws = full._rnd_draws, lambda *a: next(it)
+    try:
+        with torch.inference_mode(), RecordConvs(record=False, plain=True):
+            for _ in range(steps):
+                coords = full.rnd_coords(None, accum, PRED_SIDE, PRED_SIDE, PRED_BS, PS, 16, 2)
+                if lut is None:
+                    logits = model(gather_normalize_ref(image, coords, PS, torch.bfloat16))
+                else:
+                    logits = model(gather_quantize_int8_ref(image[None], one_slide, coords, PS, lut,
+                                                            layout), **kwargs)
+                scatter_add_map_ref(score, coords // D, logits, PS // D)
+                scatter_add_map_ref(accum, coords // 16, torch.ones(PRED_BS, device=dev), PS // 16 + 1)
+    finally:
+        full._rnd_draws = saved
+    return score, accum[..., 0]
+
+
+def count_syncs(fn) -> int:
+    """The host syncs torch sees (``torch.cuda.set_sync_debug_mode``: one
+    warning each) in one call of ``fn``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def int8_cli_calls(image, qdense, qfcn) -> tuple[dict, dict]:
+    """The K6 calls of one ``--int8 --dense`` batch (the first 64 dense
+    windows, K1's int8 mode, through the predicts' BatchPredictor) and of
+    one ``--int8 --fcn`` tile batch (the first 16 tiles of the edge-padded
+    layer, as ``predict_full_fcn`` gathers them) of the CLI's quantized
+    models → ({path: calls}, {path: K1's int8-mode inputs})."""
+    from deephisto_tpu_torch.ops import gather_quantize_int8
+    from deephisto_tpu_torch.predict import dense_coords
+    from deephisto_tpu_torch.predict.fcn import _fc, _grid, tile_logits
+    from deephisto_tpu_torch.predict.pipeline import BatchPredictor, edge_pad
+
+    dev = image.device
+    coords = torch.from_numpy(dense_coords(PRED_SIDE, PRED_SIDE, PS, STRIDE)[:PRED_BS])
+    step = BatchPredictor(image, False, qdense, PS, D, PRED_BS, dev)
+    score = torch.zeros((PRED_MAP, PRED_MAP, N_CLASSES), device=dev)
+    with RecordConvs() as dense_rec, torch.inference_mode():
+        step(score, coords, PRED_BS)
+    ty, tx, pad_y, pad_x = _grid(PRED_SIDE, PRED_SIDE, FCN_TILE, FCN_HALO)
+    bank = edge_pad(image, pad_y, pad_x)[None].contiguous()
+    t = np.arange(min(FCN_TB, ty * tx))
+    origin = torch.from_numpy((np.stack([t // tx, t % tx], 1) * FCN_TILE).astype(np.int32))
+    sidx = torch.zeros((len(t),), dtype=torch.int32)
+    layout, model_packed = qfcn.input_layout(False)
+    with RecordConvs() as fcn_rec, torch.inference_mode():
+        tiles = gather_quantize_int8(bank, sidx, origin, FCN_TILE + 2 * FCN_HALO, qfcn.input_lut,
+                                     layout)
+        tile_logits(qfcn, tiles, FCN_HALO // 32, FCN_TILE // 32, _fc(qfcn)[0],
+                    pre_packed=model_packed)
+    k1 = {"int8_dense_batch": (image[None], step.one_slide, coords, PS, qdense.input_lut,
+                               step.layout),
+          "int8_fcn_tile_batch": (bank, sidx, origin, FCN_TILE + 2 * FCN_HALO, qfcn.input_lut,
+                                  layout)}
+    return ({f"int8_dense_batch_{PRED_BS}x{PS}": dense_rec.calls,
+             f"int8_fcn_tile_batch_{len(t)}x{FCN_TILE + 2 * FCN_HALO}": fcn_rec.calls}, k1)
+
+
+def run_predict_cli(label: str, flags: dict, weights: Path, out_dir: Path) -> dict:
+    """The predict CLI's body in one mode: a timed run under a PredictSpy,
+    every launch count set to 0 just before and read just after, then its
+    predict call again under the profiler and once more counting its host
+    syncs (the host loops, whose sampler is spent after one run, are timed
+    under the profiler only). Checks the PNGs.
+    Returns the numbers, with the run's result ("result") and its spy
+    ("spy")."""
+    import importlib
+
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch._imageio import read_png
+
+    cli = importlib.import_module("deephisto_tpu_torch.examples.predict_full_patched")
+    host_loop = bool(flags.get("host_loop"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PredictSpy(profile=host_loop) as spy:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = cli.predict_full_patched(weights, out_dir=out_dir, **flags)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = None
+    if host_loop:  # timed under the profiler: its sampler is spent after one run
+        prof = spy.prof
+    else:  # the same predict call again, under the profiler, then counting syncs
+        fn, a, k = spy.call
+        prof = profile_device(lambda: fn(*a, **k), cpu=False)
+        syncs = count_syncs(lambda: fn(*a, **k))
+    pred = result["pred"]
+    if pred.shape != (PRED_MAP, PRED_MAP) or pred.dtype != np.uint8 or int(pred.max()) >= N_CLASSES:
+        raise AssertionError(f"predict CLI {label}: map {pred.shape} {pred.dtype}")
+    if spy.plain:
+        raise AssertionError(f"predict CLI {label} ran plain versions: {spy.plain}")
+    pngs = {k: read_png(p) for k, p in result["paths"].items()}
+    if any(a.shape != (PRED_MAP, PRED_MAP, 3) for a in pngs.values()):
+        raise AssertionError(f"predict CLI {label}: PNG shapes {[a.shape for a in pngs.values()]}")
+    if not np.array_equal(pngs["overlay"], (pngs["original"] * 0.6 + pngs["mask"] * 0.4)
+                          .astype(np.uint8)):
+        raise AssertionError(f"predict CLI {label}: the overlay does not follow its formula")
+    row = {"predict_s": spy.seconds["predict"], "predict_fn": spy.predict_fn,
+           "cli_s": total_s, "resize_s": spy.seconds.get("resize_s"),
+           "png_s": spy.seconds.get("png_s"), "peak_gib": peak, "launches": launches,
+           "host_syncs": syncs,
+           "busy_share": prof["device_busy_share"], "profile_wall_ms": prof["wall_ms"],
+           "kernel_ms": prof["kernel_ms"], "groups_ms": prof["groups_ms"],
+           "result": result, "spy": spy}
+    return row
+
+
+def predict_cli_phase(root: Path, device) -> dict:
+    """Phase 20 (module docstring). Returns the numbers by mode, with
+    ``launches`` {mode: launches a predict}."""
+    import os
+
+    from deephisto_tpu_torch.predict import (
+        dense_coords,
+        fcn_equivalent_patches,
+        predict_full_fused,
+        process_on_device,
+    )
+    from deephisto_tpu_torch.ops import gather_quantize_int8, gather_quantize_int8_ref
+    from deephisto_tpu_torch.ops.conv_int8 import conv_design
+    from deephisto_tpu_torch.samplers import FullImageDenseSampler, SamplerExecutionMode
+    from deephisto_tpu_torch.samplers.full import max_coverage_steps
+    from deephisto_tpu_torch.slide import DHSlide
+    from deephisto_tpu_torch.train import save_model
+
+    t0 = time.perf_counter()
+    ds = pred_dataset(root, device)
+    data_s = time.perf_counter() - t0
+    dhs = ds / "images" / "test" / "test_00.dhs"
+    with DHSlide(dhs) as s:
+        layer2 = s.load_layer(PRED_LAYER)
+    image = torch.from_numpy(layer2).to(device)
+    dense = torch.from_numpy(dense_coords(PRED_SIDE, PRED_SIDE, PS, STRIDE))
+    model = seeded_model(device, depth=18)
+    center_head(model, model.fc, image, dense[:: max(1, len(dense) // 64)][:64])
+    weights = save_model(root / "predict_ckpt" / "best_model.msgpack", model)
+    del model
+    os.environ["DEEPHISTO_DATASET"] = str(ds)
+    print(f"phase 20 data: the seeded {MAIN_SIDE}^2 slide written as DHS (layers 1, 2, 4) in "
+          f"{data_s:.1f} s; the seeded ResNet-18 (5 classes) saved to {weights}")
+
+    out: dict = {"data_s": data_s, "launches": {}}
+    n_dense = len(dense)
+    max_steps = max_coverage_steps(PRED_SIDE // 16, PRED_SIDE // 16, PRED_BS, PS, 16, 2)
+    rows = {}
+    for label, flags in PRED_MODES.items():
+        row = run_predict_cli(label, flags, weights, root / "predict_out" / label)
+        res, spy = row.pop("result"), row.pop("spy")
+        want = {"gather_normalize": 1, "scatter_add_map": 1}
+        if label.startswith("host_loop"):
+            want = {"gather_multi_u8": 1, "scatter_add_map": 1}
+        elif label.startswith("int8"):
+            want = {"gather_quantize_int8": 1, "conv_int8": 1}
+            if label != "int8_fcn":
+                want["scatter_add_map"] = 1
+        missing = [k for k in want if row["launches"].get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"predict CLI {label} never launched {missing}: {row['launches']}")
+        if "steps" in res:
+            row.update(steps=res["steps"], filled=res["filled"], draws=len(spy.draws),
+                       max_steps=max_steps, min_coverage=float(res["coverage"].min()))
+            if (res["filled"] != 1.0 or res["steps"] > max_steps or res["coverage"].min() < 1
+                    or len(spy.draws) != res["steps"]):
+                raise AssertionError(f"predict CLI {label}: filled {res['filled']} after "
+                                     f"{res['steps']} steps (max {max_steps}, {len(spy.draws)} "
+                                     f"drawn), coverage min {res['coverage'].min()}")
+            n = res["steps"] * PRED_BS
+        elif label == "int8_fcn":
+            n = fcn_equivalent_patches(PRED_SIDE, PRED_SIDE)
+        elif label == "host_loop_random":  # the sampler's steps, one draw each
+            row.update(steps=len(spy.draws), max_steps=max_steps)
+            n = len(spy.draws) * PRED_BS
+        else:
+            n = n_dense
+        row["patches_per_s"] = n / row["predict_s"]
+        rows[label] = row
+        res["draws"] = spy.draws
+        rows[label]["_res"] = res
+        out["launches"][f"predict_cli_{label}"] = row["launches"]
+        print(f"predict CLI {label}: {n} patches in {row['predict_s']:.4f} s = "
+              f"{row['patches_per_s']:.1f} patches/s ({row['predict_fn']}"
+              + ("; under the profiler" if label.startswith("host_loop") else "") + "); busy "
+              f"{row['busy_share']:.3f}; peak {row['peak_gib']:.2f} GiB; resize of layer 1 "
+              f"{row['resize_s']:.3f} s, PNGs {row['png_s']:.3f} s; CLI {row['cli_s']:.2f} s; "
+              f"launches {row['launches']}; host syncs a predict {row['host_syncs']}"
+              + (f"; steps {row['steps']} ({row['draws']} drawn)" if "draws" in row else "")
+              + (f"; sampler steps {row['steps']}" if label == "host_loop_random" else ""))
+
+    # --dense: bit-equal to predict_full_fused with the CLI's arguments
+    res = rows["dense"]["_res"]
+    want_map, want_score = predict_full_fused(layer2, res["model"], N_CLASSES, patch_size=PS,
+                                              stride=STRIDE, batch_size=PRED_BS, downscale=D)
+    if not (np.array_equal(res["pred"], want_map) and torch.equal(res["scores"], want_score)):
+        raise AssertionError("predict CLI --dense differs from predict_full_fused")
+    # random and --int8 random: bit-equal to a replay of their own draws
+    # through the plain K1 and K2 (and K6's plain version for the int8 model)
+    for label in ("random", "int8_random"):
+        res = rows[label]["_res"]
+        score, cov = replay_random(image, res["model"], res["draws"], res["steps"])
+        if not (torch.equal(score, res["scores"])
+                and np.array_equal(cov.cpu().numpy(), res["coverage"])):
+            raise AssertionError(f"the {label} predict differs from its replay through the "
+                                 "plain versions")
+        del score, cov
+    print("random and --int8 random predicts: maps, scores and coverage bit-equal to the replay "
+          "of their draws through the plain K1, K2 (and K6)")
+    # --host_loop dense against --dense: f32 patches against bf16 ones; off
+    # the cells under the last patch (HOST_LOOP_AGREE) the maps must be equal
+    host, dense_map = rows["host_loop_dense"]["_res"]["pred"], rows["dense"]["_res"]["pred"]
+    corner = (PRED_SIDE - PS) // D
+    off = np.ones_like(host, dtype=bool)
+    off[corner:, corner:] = False
+    agree = {"host_loop_dense_vs_dense": float((host == dense_map).mean()),
+             "host_loop_dense_vs_dense_off_the_last_patch": float((host == dense_map)[off].mean())}
+    # --int8 --dense: bit-equal to predict_full_fused on the same quantized model
+    res = rows["int8_dense"]["_res"]
+    want_map, want_score = predict_full_fused(layer2, res["model"], N_CLASSES, patch_size=PS,
+                                              stride=STRIDE, batch_size=PRED_BS, downscale=D)
+    if not (np.array_equal(res["pred"], want_map) and torch.equal(res["scores"], want_score)):
+        raise AssertionError("predict CLI --int8 --dense differs from predict_full_fused")
+    agree["int8_fcn_vs_int8_dense"] = float((rows["int8_fcn"]["_res"]["pred"] == res["pred"]).mean())
+    agree["int8_dense_vs_dense"] = float((res["pred"] == rows["dense"]["_res"]["pred"]).mean())
+
+    # the dense sampler in ONDISK mode (host slices of the memory-mapped layer)
+    # through process_on_device
+    model = rows["dense"]["_res"]["model"]
+    sampler = FullImageDenseSampler(dhs, layer=PRED_LAYER, patch_size=PS, batch_size=PRED_BS,
+                                    stride=STRIDE, mode=SamplerExecutionMode.ONDISK_MULTIPROC)
+    from deephisto_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with PredictSpy() as spy:
+        t0 = time.perf_counter()
+        ondisk = process_on_device(sampler, model, N_CLASSES, downscale=D, verbose=False)
+        torch.cuda.synchronize()
+        ondisk_s = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches.items() if v}
+    if spy.plain or launches.get("scatter_add_map", 0) == 0:
+        raise AssertionError(f"ONDISK process_on_device: plain {spy.plain}, launches {launches}")
+    agree["ondisk_process_on_device_vs_host_loop_dense"] = float(
+        (ondisk == rows["host_loop_dense"]["_res"]["pred"]).mean())
+    rows["ondisk_process_on_device"] = {"predict_s": ondisk_s, "patches_per_s": n_dense / ondisk_s,
+                                        "launches": launches}
+    out["launches"]["predict_ondisk_process_on_device"] = launches
+    print(f"ONDISK dense sampler through process_on_device: {n_dense} patches in {ondisk_s:.3f} s "
+          f"= {n_dense / ondisk_s:.1f} patches/s; launches {launches}; agreement {json.dumps(agree)}")
+    if agree["host_loop_dense_vs_dense"] < HOST_LOOP_AGREE:
+        raise AssertionError(f"--host_loop dense agrees with --dense on {agree} of cells")
+    if agree["ondisk_process_on_device_vs_host_loop_dense"] < 0.999:
+        raise AssertionError(f"ONDISK process_on_device agrees with the host loop on {agree}")
+
+    # K6 on every conv of one --int8 --dense batch and one --int8 --fcn tile
+    # batch of the CLI's quantized models, and K1's int8 mode on their inputs
+    calls, k1_args = int8_cli_calls(image, rows["int8_dense"]["_res"]["model"],
+                                    rows["int8_fcn"]["_res"]["model"])
+    for path, args in k1_args.items():
+        got = gather_quantize_int8(*args)
+        if not (torch.equal(got, gather_quantize_int8(*args))
+                and torch.equal(got, gather_quantize_int8_ref(*args))):
+            raise AssertionError(f"K1's int8 mode differs from its plain version on {path}")
+        print(f"K1 gather_quantize_int8 [{path}, {args[5]}]: bit-equal to the plain version at "
+              f"{tuple(got.shape)}, two runs identical")
+    del got
+    for path, path_calls in calls.items():
+        designs: dict = {}
+        for mode, args in path_calls:
+            check_k6_call(mode, args)
+            design = conv_design(args[0].shape[3])
+            designs[design] = designs.get(design, 0) + 1
+        stem = path_calls[0][1]
+        print(f"K6 conv_int8 [{path}]: the {len(path_calls)} convs bit-equal to the plain version "
+              f"in their own modes and in f32 and int8, two runs identical (designs {designs}; "
+              f"stem x {tuple(stem[0].shape)} w {tuple(stem[1].shape)} stride {stem[2]})")
+    del calls, k1_args
+    for row in rows.values():
+        row.pop("_res", None)
+    out.update(modes=rows, agreement=agree)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2125,9 +2634,20 @@ def main() -> int:
             k["launches"] += run_launches.get(k["name"], 0)
             k["launches_by_path"][path] = per_step.get(k["name"], 0)
     print("training programs: " + json.dumps(cli))
+
+    # 20. the predict CLI in each of its modes, at its own settings, on the
+    # seeded slide written as a DHS dataset and a checkpoint of the seeded
+    # ResNet-18
+    t20 = time.perf_counter()
+    predicts = predict_cli_phase(Path(root), device)
+    for path, run_launches in predicts.pop("launches").items():
+        for k in kernels:
+            k["launches"] += run_launches.get(k["name"], 0)
+            k["launches_by_path"][path] = run_launches.get(k["name"], 0)
+    print(f"predict CLI (phase 20, {time.perf_counter() - t20:.1f} s): " + json.dumps(predicts))
     data_dir.cleanup()
 
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,21 @@ coords, NHWC activations and (H/d, W/d, C) score maps.
 
 Layers, from the entry point down:
 
-    predict/   exact dense full-WSI prediction (predict_full_fused) and the
-               fcn serving mode (predict_full_fcn)
+    examples/  the CLIs: the full-WSI predict (predict_full_patched) and
+               the samplers' examples
+    predict/   exact dense and coverage-random full-WSI prediction
+               (predict_full_fused, predict_full_random_fused), the fcn
+               serving mode (predict_full_fcn), the sampler-driven
+               predictors and the visualizations (full_patched)
     models/    ResNet and ViT families, int8 PTQ of the ResNet, flax → torch
                weight bridge
     train/, samplers/, slide/, anno/, geometry/, data/
-               training over the annotated region sampler
-    ops/       patch gather (kernel K1), stitch (K2), flash attention (K3)
-               and its backward (K4, K5), int8 conv (K6), each with its
-               plain PyTorch version, which tensors on the CPU take
+               training over the annotated region sampler; the full-image
+               samplers; slide previews; annotation visualization
+    ops/       weighted sampling (torch ops), patch gather (kernel K1),
+               stitch (K2), flash attention (K3) and its backward (K4, K5),
+               int8 conv (K6), each kernel with its plain PyTorch version,
+               which tensors on the CPU take
     csrc/      the kernels' CUDA sources, built at first use by _build.py
 
 Entry points run on the current CUDA device unless the caller passes

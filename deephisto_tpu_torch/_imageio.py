@@ -1,8 +1,8 @@
 """A PNG codec in numpy and ``zlib``, standing in for PIL where the port
 reads and writes patch images: the machine with the card has no PIL.
 
-:func:`write_png` writes 8-bit RGB, filter type 0 on every row, one IDAT
-chunk. :func:`read_png` reads 8-bit, non-interlaced greyscale, grey+alpha,
+:func:`write_png` writes 8-bit RGB (or greyscale, from an (H, W) array),
+filter type 0 on every row, one IDAT chunk. :func:`read_png` reads 8-bit, non-interlaced greyscale, grey+alpha,
 RGB and RGBA files (PIL's ``convert("RGB")``: grey is repeated, alpha
 dropped) and undoes all five row filters, so it reads what PIL writes too:
 None, Sub (a cumulative sum mod 256), Up (a row add), and Average and Paeth
@@ -28,14 +28,17 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(image: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 → PNG bytes."""
+    """(H, W, 3) uint8 (RGB) or (H, W) uint8 (greyscale) → PNG bytes."""
     image = np.asarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.shape} {image.dtype}")
+    grey = image.ndim == 2
+    if image.dtype != np.uint8 or not (grey or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"write_png takes (H, W, 3) or (H, W) uint8, got {image.shape} "
+                         f"{image.dtype}")
     h, w = image.shape[:2]
-    rows = np.zeros((h, 1 + 3 * w), dtype=np.uint8)  # filter byte 0 on every row
-    rows[:, 1:] = image.reshape(h, 3 * w)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    c = 1 if grey else 3
+    rows = np.zeros((h, 1 + c * w), dtype=np.uint8)  # filter byte 0 on every row
+    rows[:, 1:] = image.reshape(h, c * w)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + _chunk(b"IEND", b""))
 

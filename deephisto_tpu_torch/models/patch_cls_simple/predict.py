@@ -3,9 +3,10 @@
 checkpoint (the JAX package's flax msgpack format), classify one image file,
 print the class, with the same /255 normalization as training.
 
-Images are read with the port's PNG codec; JPEG, and resizing an image that
-is not ``patch_size``² (PIL's bilinear), need PIL and raise where it is not
-installed, as on the machine with the card.
+Images are read with the port's PNG codec, and one that is not
+``patch_size``² is resized as PIL's bilinear resize does it, byte for byte
+(``slide.base._resize_uint8``); another format (JPEG) needs PIL to decode
+and raises where it is not installed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..._device import resolve_device
 from ..._imageio import read_png
+from ...slide.base import _resize_uint8
 from ...train.checkpoint import load_model as load_weights
 from ...train.checkpoint import load_variables
 from .model import get_model
@@ -31,19 +33,17 @@ def load_image(image_path: Path | str, patch_size: int = 224) -> np.ndarray:
     image_path = Path(image_path)
     if image_path.suffix == ".png":
         img = read_png(image_path)
-        if img.shape[:2] == (patch_size, patch_size):
-            return img
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(
-            f"{image_path}: reading a non-PNG image or resizing one to {patch_size}^2 "
-            "needs PIL, which is not installed"
-        ) from None
-    im = Image.open(image_path).convert("RGB")
-    if im.size != (patch_size, patch_size):
-        im = im.resize((patch_size, patch_size), Image.BILINEAR)
-    return np.asarray(im, dtype=np.uint8)
+    else:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise RuntimeError(
+                f"{image_path}: reading a non-PNG image needs PIL, which is not installed"
+            ) from None
+        img = np.asarray(Image.open(image_path).convert("RGB"), dtype=np.uint8)
+    if img.shape[:2] != (patch_size, patch_size):
+        img = _resize_uint8(img, (patch_size, patch_size))
+    return img
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-"""Device ops: preprocessing and flip augmentation, patch gather (kernel K1, with its multi-slide uint8 mode and
+"""Device ops: preprocessing and flip augmentation, weighted sampling
+(Gumbel-max and Gumbel-top-k, torch ops), patch gather (kernel K1, with its multi-slide uint8 mode and
 its int8 mode, the int8 model's input quantize and stem layout fused in),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
 and the int8 convolution with its epilogue, the ResNet block's among its
@@ -34,7 +35,17 @@ from .gather import (
     u8_table,
     unpack_s2d8,
 )
+from .sampling import (
+    categorical,
+    coverage_cell_topk,
+    gumbel,
+    gumbel_topk,
+    log_weights,
+    top_k,
+    uniform_int,
+)
 from .stitch import (
+    accumulate_coverage,
     coverage_footprint,
     map_footprint,
     scatter_add_map,
@@ -43,7 +54,10 @@ from .stitch import (
 )
 
 __all__ = [
+    "accumulate_coverage",
     "attention_plain",
+    "categorical",
+    "coverage_cell_topk",
     "conv_f32",
     "conv_int8_block",
     "conv_int8_block_ref",
@@ -62,6 +76,9 @@ __all__ = [
     "gather_patches_multi",
     "gather_quantize_int8",
     "gather_quantize_int8_ref",
+    "gumbel",
+    "gumbel_topk",
+    "log_weights",
     "map_footprint",
     "preprocess_batch",
     "preprocess_batch_per_sample",
@@ -69,6 +86,8 @@ __all__ = [
     "scatter_add_map_exact",
     "scatter_add_map_ref",
     "s2d_pack4",
+    "top_k",
     "u8_table",
+    "uniform_int",
     "unpack_s2d8",
 ]

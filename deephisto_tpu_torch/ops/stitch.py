@@ -1,6 +1,7 @@
-"""Stitching: scatter-add per-patch values into downscaled whole-slide maps.
+"""Stitching: scatter-add per-patch values into downscaled whole-slide maps,
+and the coverage accumulator of the random samplers.
 
-Port of ``deephisto_tpu/ops/stitch.py:19-107``. ``scatter_add_map`` is kernel
+Port of ``deephisto_tpu/ops/stitch.py``. ``scatter_add_map`` is kernel
 K2 (``csrc/stitch.cu``): deterministic, each map cell summing its covering
 patches in index order, as XLA's scatter and the plain loop do. Unlike the
 JAX functions, which return a new map, these add into ``acc_map`` in place
@@ -131,3 +132,17 @@ def scatter_add_map_exact(
         return scatter_add_map(acc_map, coords_raw // d, values, max(1, ps // d))
     spans = (coords_raw % d + ps) // d  # ps//d or ps//d + 1
     return scatter_add_map(acc_map, coords_raw // d, values, ps // d + 1, spans=spans)
+
+
+def accumulate_coverage(accum: torch.Tensor, coords_ds, footprint: int):
+    """Coverage update on K2 (ops/stitch.py:111): ``accum[footprint cells]
+    += 1`` in place, footprints cut at the map's bottom and right edges (the
+    cells past them dropped, as ``mode="drop"``). ``accum`` is the
+    contiguous (dh, dw, 1) float32 map, which K2 takes as it is.
+    Returns (accum, filled_ratio): the ratio of nonzero cells, a 0-d
+    float32 tensor on accum's device (read it on the host only where
+    needed)."""
+    coords_ds = torch.as_tensor(coords_ds)
+    ones = torch.ones((coords_ds.shape[0],), dtype=torch.float32, device=accum.device)
+    scatter_add_map(accum, coords_ds, ones, footprint)
+    return accum, torch.count_nonzero(accum).to(torch.float32) / accum.numel()

@@ -1,6 +1,7 @@
-"""Exact dense full-WSI prediction, a port of
+"""Exact dense and coverage-random full-WSI prediction, a port of
 ``deephisto_tpu/predict/pipeline.py`` (``dense_coords``, ``model_input``,
-``PackedSlide``, ``stage_packed_slide``, ``predict_full_fused``).
+``PackedSlide``, ``stage_packed_slide``, ``predict_full_fused``,
+``predict_full_random_fused``).
 
 The JAX package runs the whole predict as one ``lax.scan``; here a Python
 loop over coordinate batches launches, per batch, K1, the model, an optional
@@ -24,7 +25,8 @@ import torch
 
 from .._device import resolve_device
 from ..ops.gather import gather_multi_u8, gather_normalize, gather_quantize_int8
-from ..ops.stitch import scatter_add_map_exact
+from ..ops.stitch import accumulate_coverage, coverage_footprint, scatter_add_map_exact
+from ..samplers.full import max_coverage_steps, rnd_coords
 
 
 def model_input(model, patches_u8: torch.Tensor) -> torch.Tensor:
@@ -114,6 +116,75 @@ def dense_coords(h: int, w: int, patch_size: int, stride: int) -> np.ndarray:
     return np.asarray(coords, dtype=np.int32)
 
 
+def _checked_inputs(image, model, n_classes: int, device: torch.device):
+    """Check a predict's slide, model and class count → (image, packed, h,
+    w): the image a PackedSlide or an (H, W, C) uint8 tensor on
+    ``device``."""
+    if n_classes > 255:
+        raise ValueError("class maps are uint8: n_classes must be <= 255")
+    packed = isinstance(image, PackedSlide)
+    if packed:
+        if getattr(model, "stem", None) != "s2d":
+            raise ValueError(
+                "PackedSlide is the s2d-packed representation; the model "
+                f"has stem={getattr(model, 'stem', None)!r}"
+            )
+        h, w = image.h, image.w
+    else:
+        image = torch.as_tensor(image).to(device)
+        if image.dtype != torch.uint8 or image.ndim != 3:
+            raise ValueError(
+                f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"
+            )
+        h, w = int(image.shape[0]), int(image.shape[1])
+    if model_device(model) != device:
+        raise ValueError(
+            f"model is on {model_device(model)}, the prediction on {device}; move it with "
+            "model.to(device)"
+        )
+    return image, packed, h, w
+
+
+class BatchPredictor:
+    """The per-batch body of both full-WSI predicts: K1 in the mode the
+    model takes (float /255 to bf16; the int8 ResNet's int8 mode, in its
+    stem's layout; uint8 for another ``wants_uint8`` model), the forward,
+    an optional softmax, then K2 into the score map. ``slide`` is the raw
+    (H, W, C) uint8 slide or, with ``packed``, the PackedSlide; the model
+    is put in eval mode."""
+
+    def __init__(self, slide, packed: bool, model, patch_size: int, downscale: int,
+                 batch_size: int, device: torch.device, softmax: bool = False):
+        self.slide = (slide.packed if packed else slide).to(device).contiguous()
+        self.unit = 4 if packed else 1
+        self.model, self.ps, self.d, self.softmax = model, patch_size, downscale, softmax
+        self.lut = getattr(model, "input_lut", None)
+        self.wants_uint8 = getattr(model, "wants_uint8", False)
+        self.one_slide = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+        self.kwargs = {"pre_packed": True} if packed else {}
+        if self.lut is not None:
+            self.layout, pre_packed = model.input_layout(packed)
+            self.kwargs = {"pre_packed": pre_packed} if pre_packed else {}
+        model.eval()
+
+    def __call__(self, score_map: torch.Tensor, coords: torch.Tensor, real: int) -> None:
+        """Add the scores of the first ``real`` patches at raw (N, 2) int32
+        ``coords`` into ``score_map``."""
+        cg = coords // self.unit if self.unit > 1 else coords
+        ps = self.ps // self.unit
+        if self.lut is not None:  # K1's int8 mode on a one-slide view of the slide
+            x = gather_quantize_int8(self.slide[None], self.one_slide[: len(cg)], cg, ps,
+                                     self.lut, self.layout)
+        elif self.wants_uint8:  # K1's uint8 mode
+            x = gather_multi_u8(self.slide[None], self.one_slide[: len(cg)], cg, ps)
+        else:
+            x = gather_normalize(self.slide, cg, ps, torch.bfloat16)
+        logits = self.model(x, **self.kwargs)
+        if self.softmax:
+            logits = torch.softmax(logits.float(), dim=-1)
+        scatter_add_map_exact(score_map, coords[:real], logits[:real], self.ps, self.d)
+
+
 def predict_full_fused(
     image,
     model,
@@ -140,29 +211,8 @@ def predict_full_fused(
     the real patches of the last batch are stitched, so every tile counts
     exactly once (as the zero-weighted lanes at pipeline.py:168).
     """
-    if n_classes > 255:
-        raise ValueError("class maps are uint8: n_classes must be <= 255")
     device = resolve_device(device)
-    packed = isinstance(image, PackedSlide)
-    if packed:
-        if getattr(model, "stem", None) != "s2d":
-            raise ValueError(
-                "PackedSlide is the s2d-packed representation; the model "
-                f"has stem={getattr(model, 'stem', None)!r}"
-            )
-        h, w = image.h, image.w
-    else:
-        image = torch.as_tensor(image).to(device)
-        if image.dtype != torch.uint8 or image.ndim != 3:
-            raise ValueError(
-                f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"
-            )
-        h, w = int(image.shape[0]), int(image.shape[1])
-    if model_device(model) != device:
-        raise ValueError(
-            f"model is on {model_device(model)}, the prediction on {device}; move it with "
-            "model.to(device)"
-        )
+    image, packed, h, w = _checked_inputs(image, model, n_classes, device)
     ps, bs, d = patch_size, batch_size, downscale
     coords = dense_coords(h, w, ps, stride)
     if packed and (ps % 4 or (coords % 4).any()):
@@ -173,8 +223,6 @@ def predict_full_fused(
                 "the raw image for arbitrary grids"
             )
         image, packed = image.raw, False
-    slide = (image.packed if packed else image).to(device).contiguous()
-    unit = 4 if packed else 1
     n = len(coords)
     n_b = -(-n // bs)
     if n_b * bs > n:
@@ -183,29 +231,72 @@ def predict_full_fused(
     if device.type == "cuda":
         coords = coords.pin_memory()  # lets every batch's upload run ahead
 
-    lut = getattr(model, "input_lut", None)
-    wants_uint8 = getattr(model, "wants_uint8", False)
-    one_slide = torch.zeros((bs,), dtype=torch.int32, device=device)
-    kwargs = {"pre_packed": True} if packed else {}
-    if lut is not None:
-        layout, pre_packed = model.input_layout(packed)
-        kwargs = {"pre_packed": pre_packed} if pre_packed else {}
-    model.eval()
+    step = BatchPredictor(image, packed, model, ps, d, bs, device, softmax)
     score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for b in range(n_b):
             cb = coords[b * bs : (b + 1) * bs]
-            cg = cb // unit if packed else cb
-            if lut is not None:  # K1's int8 mode on a one-slide view of the slide
-                x = gather_quantize_int8(slide[None], one_slide, cg, ps // unit, lut, layout)
-            elif wants_uint8:  # K1's uint8 mode
-                x = gather_multi_u8(slide[None], one_slide, cg, ps // unit)
-            else:
-                x = gather_normalize(slide, cg, ps // unit, torch.bfloat16)
-            logits = model(x, **kwargs)
-            if softmax:
-                logits = torch.softmax(logits.float(), dim=-1)
-            real = min(bs, n - b * bs)
-            scatter_add_map_exact(score_map, cb[:real], logits[:real], ps, d)
+            step(score_map, cb, min(bs, n - b * bs))
         argmax_map = score_map.argmax(dim=-1).to(torch.uint8).cpu().numpy()
     return argmax_map, score_map
+
+
+def predict_full_random_fused(
+    image,
+    model,
+    n_classes: int,
+    patch_size: int = 224,
+    batch_size: int = 512,
+    downscale: int = 16,
+    speedup: int = 16,
+    dense_level: int = 2,
+    seed: int = 0,
+    max_steps: int | None = None,
+    device=None,
+):
+    """Coverage-guided random full-WSI prediction (pipeline.py:185-316):
+    steps of a Gumbel-top-k cell draw, a jitter, K1, the forward and K2
+    into the class-score map and (K2) into the coverage accumulator, until
+    every accumulator cell is covered or ``max_steps``. Returns (argmax_map,
+    score_map, coverage, filled, steps) as the JAX function does: the
+    uint8 map (numpy), the score tensor on ``device``, the (H/speedup,
+    W/speedup) coverage (numpy), its filled ratio and the steps taken.
+
+    The JAX ``lax.while_loop`` stops after the first step whose filled
+    ratio reaches 1.0, or at ``max_steps``. Here the host reads the filled
+    ratio after every step (one sync a batch) and stops on the same rule,
+    so steps, filled, coverage and scores are the while loop's. The draws
+    come from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+
+    Takes the models and slides :func:`predict_full_fused` takes; a
+    :class:`PackedSlide` (s2d-stem models) gathers in packed space with the
+    jitter drawn on the 4-px grid (4-aligned patch_size and speedup)."""
+    device = resolve_device(device)
+    image, packed, h, w = _checked_inputs(image, model, n_classes, device)
+    if packed and (patch_size % 4 or speedup % 4):
+        raise ValueError(
+            "PackedSlide random predict needs 4-aligned patch_size and "
+            f"speedup (got {patch_size}, {speedup})"
+        )
+    ps, bs = patch_size, batch_size
+    if h < ps or w < ps:
+        raise ValueError(f"layer size {(h, w)} is smaller than patch_size {ps}")
+    dh, dw = h // speedup, w // speedup
+    if max_steps is None:
+        max_steps = max_coverage_steps(dh, dw, bs, ps, speedup, dense_level)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    step = BatchPredictor(image, packed, model, ps, downscale, bs, device)
+    f_cov = coverage_footprint(ps, speedup)
+    score_map = torch.zeros((h // downscale, w // downscale, n_classes), dtype=torch.float32,
+                            device=device)
+    accum = torch.zeros((dh, dw, 1), dtype=torch.float32, device=device)
+    filled, steps = 0.0, 0
+    with torch.inference_mode():
+        while steps < max_steps and filled < 1.0:
+            coords = rnd_coords(gen, accum, h, w, bs, ps, speedup, dense_level,
+                                grid=4 if packed else 1)
+            step(score_map, coords, bs)
+            accum, fr = accumulate_coverage(accum, coords // speedup, f_cov)
+            filled, steps = float(fr), steps + 1
+        argmax_map = score_map.argmax(dim=-1).to(torch.uint8).cpu().numpy()
+    return argmax_map, score_map, accum[..., 0].cpu().numpy(), filled, steps

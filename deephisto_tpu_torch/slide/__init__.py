@@ -1,5 +1,5 @@
 """Slide I/O: pyramidal gigapixel image backends (the port's copy of
-``deephisto_tpu/slide``, without the .psi backend)."""
+``deephisto_tpu/slide``)."""
 
 from pathlib import Path
 
@@ -29,14 +29,20 @@ __all__ = [
 
 
 def open_slide(path) -> Slide:
-    """Open an on-disk slide by path: ``.dhs`` → DHSlide. ``.psi`` (the
-    external psimage codec) is not ported."""
+    """Open an on-disk slide by path: ``.dhs`` → DHSlide; ``.psi`` →
+    PSISlide when the psimage package imports, else raises with guidance
+    (the psimage codec is not bundled)."""
     path = Path(path)
     if path.suffix == ".dhs":
         return DHSlide(path)
     if path.suffix == ".psi":
+        from .psi import PSISlide, psimage_available
+
+        if psimage_available():
+            return PSISlide(path)
         raise NotImplementedError(
-            "the port reads .dhs slides only; convert .psi slides with the JAX "
-            "package (deephisto_tpu.slide.psi.convert_psi_to_dhs)"
+            "PSI codec requires the psimage package (not bundled); install it, "
+            "or convert the slide to .dhs via "
+            "deephisto_tpu_torch.slide.psi.convert_psi_to_dhs / write_dhs."
         )
     raise ValueError(f"unknown slide format: {path.suffix!r} ({path})")

@@ -48,6 +48,27 @@ class DHSlide(Slide):
             self._arrays[layer] = arr
         return arr
 
+    def load_layer(self, layer: int) -> np.ndarray:
+        """Materialize a full layer in host RAM (contiguous uint8 copy)."""
+        self._assert_layer(layer)
+        return np.ascontiguousarray(self._layer_array(layer))
+
+    def mmap_layer(self, layer: int) -> np.ndarray | None:
+        """The raw memory-mapped layer, validated against meta.json (a size
+        mismatch must fail loudly here rather than as an out-of-bounds read
+        downstream)."""
+        self._assert_layer(layer)
+        arr = self._layer_array(layer)
+        if not isinstance(arr, np.memmap):
+            return None
+        expect = self.layer_size(layer)
+        if tuple(arr.shape[:2]) != expect:
+            raise ValueError(
+                f"DHS layer {layer} shape {arr.shape[:2]} does not match "
+                f"meta.json layer size {expect} ({self.path})"
+            )
+        return arr
+
     def close(self) -> None:
         self._arrays.clear()
 
