@@ -139,7 +139,39 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     (16 × 1152²) of the CLI's quantized model, in its own mode and in the
     f32 and int8 modes, bit-equal, two runs identical; ``--host_loop`` dense
     against ``--dense`` ≥ 99.9 % of cells; the fcn map's agreement with
-    exact int8 (reported).
+    exact int8 (reported);
+21. the serving daemon (``deephisto_tpu_torch.serve``): a ``save_model``
+    checkpoint and config YAML of phase 11's seeded s2d ResNet-18 (its head
+    centred), served by a float and an ``int8=True`` ``ServingEngine``
+    (``from_checkpoint``, the engine's defaults: tile 1024, halo 32, 16
+    tiles a step, 8 patch lanes) behind ``serve_in_thread``: ``/healthz``
+    names the card; the 16384² slide POSTed as ``.npy`` to ``/v1/slide`` in
+    fcn, dense and random mode, each map bit-equal to the direct call with
+    the same arguments, then ``/v1/stage`` and the fcn request by key,
+    bit-equal to the unstaged map; ``/v1/patch`` from 1 client and from 64
+    at once (4 requests each), each answer's class equal and its
+    probabilities within 1e-5 of the direct 8-lane forward; request
+    seconds, patches/s over HTTP and direct, the HTTP overhead and
+    requests/s; both streamed predicts at 16384² with 2,048 stripe rows
+    (dense bf16 and int8, fcn int8 pack 8 and bf16) bit-equal to the
+    resident ones (maps and scores), timed in turns with the share of the
+    upload hidden (``prestage_all``'s ``timings``), and the int8 engine
+    with ``stream_above_bytes`` under the slide's size routing fcn to the
+    streamed predict with the same map; then on phase 7's 8192² crop
+    vit2p8 through ``fold_vit_stem`` (map agreement and score gap with the
+    unfolded bf16 model; against the float32 model on the 2048² crop its
+    agreement at most 1 point under the unfolded bf16 model's and its
+    largest score gap at most twice that model's), ``quantize_vit`` of
+    vit2p8 (conv stem) and ViT-S/16 (linear stem) on 32 patches of the
+    slide: K6 bit-equal to its plain version on every conv of one int8
+    batch of 256 (its own mode, f32 and int8), every ``_int_mm`` Dense of
+    that batch bit-equal to its float64 product, each timed beside its
+    bound; the bf16, folded and int8 predicts timed with K3 launched depth
+    × batches a predict. Every kernel (K1 in its three modes, K2, K3, K6)
+    launched on the phase's paths, and no plain version called there (the
+    kernels', the int8 Dense's, K3's and the ViT's plain attention). Also
+    B7 (``gumbel_topk``, ``coverage_cell_topk``, torch ops) timed apart at
+    the random predicts' shapes beside its byte bound.
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -164,6 +196,8 @@ last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 from __future__ import annotations
 
+import copy
+import importlib
 import json
 import subprocess
 import sys
@@ -2264,6 +2298,517 @@ def predict_cli_phase(root: Path, device) -> dict:
     return out
 
 
+
+# ---- the serving daemon (phase 21) ----------------------------------------
+
+STREAM_ROWS = 2048  # the streamed predicts' stripe rows
+PATCH_CLIENTS, PATCH_REQUESTS = 64, 4  # concurrent /v1/patch clients, requests each
+PATCH_TOL = 1e-5  # a coalesced patch answer vs the direct 8-lane forward (softmax probs)
+# the folded-stem vit2p8 "to bf16 rounding": against the float32 model on
+# the 2048² crop, its map agrees at most 1 point less than the unfolded bf16
+# model's, and its largest score gap is at most twice that model's
+FOLD_AGREE_SLACK, FOLD_GAP_RATIO = 0.01, 2.0
+VIT_CALIB_N = 32  # calibration patches of the int8 ViTs, gathered from the slide
+# the plain versions the daemon's path must not call: the kernels' (phase
+# 20's list), the int8 Dense's, K3's and the ViT's plain attention
+DAEMON_PLAIN = tuple((f"deephisto_tpu_torch.ops.{m}", n) for m, n in PLAIN_VERSIONS) + (
+    ("deephisto_tpu_torch.models.quantize_vit", "int8_matmul_ref"),
+    ("deephisto_tpu_torch.ops.attention", "flash_attention_ref"),
+    ("deephisto_tpu_torch.models.vit", "attention_plain"),
+)
+
+
+class CountPlain:
+    """While active, counts every call of a plain version in ``DAEMON_PLAIN``
+    (``counts``), passing it through."""
+
+    def __enter__(self):
+        self.counts, self._saved = {}, []
+        for mod, name in DAEMON_PLAIN:
+            m = importlib.import_module(mod)
+            fn = getattr(m, name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                return _fn(*a, **k)
+            self._saved.append((m, name, fn))
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in reversed(self._saved):
+            setattr(m, name, fn)
+
+
+class RecordViT:
+    """Within ``with``: the int8 ViT's K6 calls (f32 and block modes) and its
+    int8 Dense products are recorded with their inputs, and run as usual."""
+
+    def __enter__(self):
+        qv = importlib.import_module("deephisto_tpu_torch.models.quantize_vit")
+
+        self._saved = qv.conv_f32, qv.conv_int8_block, qv.int8_matmul
+        self.convs, self.dense = [], []
+        f32, block, mm = self._saved
+
+        def conv_f32(*args):
+            self.convs.append(("f32", args))
+            return f32(*args)
+
+        def conv_block(*args):
+            self.convs.append(("block", args))
+            return block(*args)
+
+        def int8_matmul(x8, w8):
+            self.dense.append((x8, w8))
+            return mm(x8, w8)
+
+        qv.conv_f32, qv.conv_int8_block, qv.int8_matmul = conv_f32, conv_block, int8_matmul
+        return self
+
+    def __exit__(self, *exc):
+        qv = importlib.import_module("deephisto_tpu_torch.models.quantize_vit")
+        qv.conv_f32, qv.conv_int8_block, qv.int8_matmul = self._saved
+
+
+def http(url, body=None, content_type="application/x-npy", method=None):
+    """One request: (status, headers, body bytes)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method=method or ("POST" if body is not None
+                                                                     else "GET"))
+    if body is not None:
+        req.add_header("Content-Type", content_type)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def npy_bytes(arr) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def npy_load(body: bytes):
+    import io
+
+    return np.load(io.BytesIO(body))
+
+
+def check_vit_k6(calls, label: str) -> list:
+    """K6 against its plain version on every recorded conv of one int8 ViT
+    batch (``check_k6_call``: its own mode and the f32 and int8 modes,
+    bit-equal, two runs identical), each timed in its own mode beside its
+    bound and its plain version, with its design."""
+    from deephisto_tpu_torch.ops import conv_int8 as k6
+
+    rows = []
+    for mode, args in calls:
+        x, w, stride, pads = args[:4]
+        outs = check_k6_call(mode, args)
+        oh, ow = outs["f32"].shape[1:3]
+        nbytes, ops = conv_bytes_ops(x, w, mode, args[6:], oh, ow)
+        ms = cuda_ms(lambda i: _run_k6(mode, args), 10)
+        plain_ms = cuda_ms(lambda i: _plain_k6(mode, args), 2, warmup=1)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
+        rows.append(dict(model=label, x=list(x.shape), w=list(w.shape), stride=stride,
+                         pads=[list(p) for p in pads], mode=mode,
+                         design=k6.conv_design(x.shape[3]), ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms > ops_ms else "operations"))
+        print(f"K6 conv_int8 [{label}] {rows[-1]['design']} x {tuple(x.shape)} w "
+              f"{tuple(w.shape)} stride {stride} pads {pads} {mode}: bit-equal to the plain "
+              f"version in {', '.join(outs)}; {ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms, "
+              f"plain {plain_ms:.3f} ms")
+        del outs
+    return rows
+
+
+def check_int_mm(dense, label: str) -> dict:
+    """Each recorded int8 Dense product (``torch._int_mm``) against its plain
+    version (the float64 product of the integer values), bit-equal; each
+    distinct shape timed beside its bound."""
+    from deephisto_tpu_torch.models.quantize_vit import int8_matmul, int8_matmul_ref
+
+    shapes = {}
+    for x8, w8 in dense:
+        got = int8_matmul(x8, w8)
+        if got.dtype != torch.int32 or not torch.equal(got, int8_matmul_ref(x8, w8)):
+            raise AssertionError(f"_int_mm differs from the float64 product at "
+                                 f"{tuple(x8.shape)} x {tuple(w8.shape)} ({label})")
+        key = (tuple(x8.shape), tuple(w8.shape))
+        if key not in shapes:
+            (m, k), n = x8.shape, w8.shape[0]
+            nbytes, ops = m * k + n * k + 4 * m * n, 2.0 * m * n * k
+            shapes[key] = dict(
+                ms=cuda_ms(lambda i: int8_matmul(x8, w8), 10),
+                plain_ms=cuda_ms(lambda i: int8_matmul_ref(x8, w8), 2, warmup=1),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / INT8_OP_PER_S) * 1e3, calls=0)
+        shapes[key]["calls"] += 1
+    out = {f"{list(a)}x{list(b)}": v for (a, b), v in shapes.items()}
+    print(f"int8 Dense [{label}]: {len(dense)} _int_mm products bit-equal to the float64 "
+          f"product; by shape {json.dumps(out)}")
+    return out
+
+
+def time_b7(device) -> dict:
+    """B7 (``gumbel_topk``, ``coverage_cell_topk``: torch ops) timed apart at
+    the random predicts' shapes (phase 21's daemon: a (1024, 1024) coverage
+    grid, 512 cells a step; phase 20's CLI: (512, 512), 64), on given noise,
+    beside its byte bound: its inputs read once (the accumulator or the
+    log-weights and the noise, f32) and the k int64 indices written once."""
+    from deephisto_tpu_torch.ops import coverage_cell_topk, gumbel_topk
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    out = {}
+    for side, k in ((MAIN_SIDE // 16, 512), (PRED_SIDE // 16, PRED_BS)):
+        n = side * side
+        accum = torch.randint(0, 4, (side, side, 1), generator=gen, device=device).float()
+        noise = torch.rand(n, generator=gen, device=device)
+        logw = torch.where(accum.reshape(-1) >= 2, -1e9, 0.0)
+        bound_ms = (8 * n + 16 * k) / HBM_BYTES_PER_S * 1e3
+        row = {
+            "coverage_cell_topk_ms": cuda_ms(lambda i: coverage_cell_topk(noise, accum, 2, k), 20),
+            "gumbel_topk_ms": cuda_ms(lambda i: gumbel_topk(noise, logw, k), 20),
+            "coverage_cell_topk_bound_ms": bound_ms,
+            "gumbel_topk_bound_ms": (8 * n + 8 * k) / HBM_BYTES_PER_S * 1e3,
+        }
+        out[f"{side}x{side}_k{k}"] = row
+    print("B7 (torch ops) at the random predicts' shapes: " + json.dumps(out))
+    return out
+
+
+def daemon_phase(root: Path, device) -> dict:
+    """Phase 21, the serving daemon at full width on the card: a float and
+    an int8 ``ServingEngine`` over a ``save_model`` checkpoint of the seeded
+    s2d ResNet-18 behind ``serve_in_thread``; the 16384² slide over
+    ``/v1/slide`` in each mode and staged, bit-equal to the direct calls;
+    ``/v1/patch`` at 1 and 64 clients; both streamed predicts bit-equal to
+    the resident ones; the folded-stem and int8 ViTs. Returns the report,
+    with the launches of each path under ``"launches"``."""
+    import concurrent.futures
+
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.models import fold_vit_stem, quantize_vit
+    from deephisto_tpu_torch.ops import gather_normalize, gather_quantize_int8
+    from deephisto_tpu_torch.predict import (
+        dense_coords,
+        fcn_equivalent_patches,
+        predict_full_fcn,
+        predict_full_fcn_streamed,
+        predict_full_fused,
+        predict_full_random_fused,
+        predict_full_streamed,
+    )
+    from deephisto_tpu_torch.serve import ServingEngine, serve_in_thread
+    from deephisto_tpu_torch.serve.engine import MODES
+    from deephisto_tpu_torch.train.checkpoint import save_model
+
+    report, launches, plain = {}, {}, {}
+    slide = seeded_slide(device)
+    slide_np = slide.cpu().numpy()
+    dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
+    n_patches, n_equiv = len(dense), fcn_equivalent_patches(MAIN_SIDE, MAIN_SIDE)
+    r18 = seeded_model(device, depth=18, stem="s2d")
+    center_head(r18, r18.fc, slide, dense[:: n_patches // 64][:64])
+    ckpt = save_model(root / "serve" / "best_model.msgpack", r18)
+    cfg_path = root / "serve" / "config.yaml"
+    write_yaml(cfg_path, {"model": {"n_classes": N_CLASSES, "depth": 18, "stem": "s2d"},
+                          "dataset": {"patch_size": PS}})
+    del r18
+    engines = {"bf16": ServingEngine.from_checkpoint(cfg_path, ckpt),
+               "int8": ServingEngine.from_checkpoint(cfg_path, ckpt, int8=True)}
+    body = npy_bytes(slide_np)
+    random_batch = min(512, (MAIN_SIDE // 16) ** 2)
+
+    def direct(eng, mode):
+        """The engine's predict of ``mode`` as a direct call, timed."""
+        model = eng._model_for(mode)
+        fcn = dict(patch_size=PS, tile=eng.tile, halo=eng.halo, tile_batch=eng.tile_batch)
+        call = {"fcn": lambda: predict_full_fcn(slide_np, model, N_CLASSES, **fcn)[0],
+                "dense": lambda: predict_full_fused(slide_np, model, N_CLASSES, patch_size=PS)[0],
+                "random": lambda: predict_full_random_fused(
+                    slide_np, model, N_CLASSES, patch_size=PS, batch_size=random_batch,
+                    seed=0)[0]}[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amap = call()
+        torch.cuda.synchronize()
+        return amap, time.perf_counter() - t0
+
+    # /v1/slide in each mode, then staged; /v1/patch (the daemon's path:
+    # launches counted over the requests, no plain version called)
+    servers = {k: serve_in_thread(e) for k, e in engines.items()}
+    try:
+        for kind, eng in engines.items():
+            base = servers[kind][1]
+            st, _, health = http(base + "/healthz")
+            if st != 200 or json.loads(health)["device_name"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"/healthz of the {kind} daemon: {st} {health[:200]}")
+            rows = {}
+            for mode in MODES:
+                direct(eng, mode)  # warm-up: cuDNN's picks, the allocator
+                _build.reset_launches()
+                with CountPlain() as cp:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, headers, out = http(base + f"/v1/slide?mode={mode}", body)
+                    http_s = time.perf_counter() - t0
+                run_launches = dict(_build.launches)
+                if st != 200:
+                    raise AssertionError(f"/v1/slide {mode} ({kind}): {st} {out[:300]}")
+                amap = npy_load(out)
+                want, direct_s = direct(eng, mode)
+                if not np.array_equal(amap, want):
+                    raise AssertionError(f"/v1/slide {mode} ({kind}) differs from the direct call")
+                meta = json.loads(headers["X-DeepHisto-Meta"])
+                n = n_equiv if mode == "fcn" else n_patches
+                rows[mode] = {"http_s": http_s, "direct_s": direct_s,
+                              "http_overhead_s": http_s - direct_s,
+                              "patches_per_s_http": n / http_s if mode != "random" else None,
+                              "patches_per_s_direct": n / direct_s if mode != "random" else None,
+                              "meta": meta, "launches": run_launches}
+                launches[f"daemon_{kind}_{mode}_16384"] = run_launches
+                plain.update({f"{kind}_{mode}_{k}": v for k, v in cp.counts.items()})
+            # stage, then the same fcn request by key
+            _build.reset_launches()
+            with CountPlain() as cp:
+                t0 = time.perf_counter()
+                st, _, out = http(base + "/v1/stage?key=slide", body)
+                stage_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                st2, _, out2 = http(base + "/v1/slide?key=slide", b"")
+                staged_s = time.perf_counter() - t0
+            launches[f"daemon_{kind}_staged_fcn_16384"] = dict(_build.launches)
+            plain.update({f"{kind}_staged_{k}": v for k, v in cp.counts.items()})
+            if st != 200 or st2 != 200:
+                raise AssertionError(f"staging ({kind}): {st} {out[:200]} / {st2} {out2[:200]}")
+            if not np.array_equal(npy_load(out2), direct(eng, "fcn")[0]):
+                raise AssertionError(f"the staged fcn map ({kind}) differs from the unstaged one")
+            rows["staged_fcn"] = {"stage_http_s": stage_s, "predict_by_key_http_s": staged_s,
+                                  "pack": eng._staged["slide"].pack,
+                                  "pre_tiled": eng._staged["slide"].tiles is not None}
+            http(base + "/v1/stage/slide", method="DELETE")
+            print(f"daemon ({kind}) over HTTP on the {MAIN_SIDE}^2 slide: " + json.dumps(
+                {m: {k: v for k, v in r.items() if k != "launches"} for m, r in rows.items()}))
+            report[f"slide_{kind}"] = rows
+
+        # /v1/patch: 1 client, then PATCH_CLIENTS at once, each answer held
+        # against the direct 8-lane forward of its image
+        eng, base = engines["bf16"], servers["bf16"][1]
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        patches = torch.randint(0, 256, (PATCH_CLIENTS, PS, PS, 3), dtype=torch.uint8,
+                                generator=gen, device=device).cpu().numpy()
+        bodies = [npy_bytes(p) for p in patches]
+        http(base + "/v1/patch", bodies[0])  # builds the patch forward and its batcher
+        with torch.inference_mode():
+            lanes = eng.patch_lanes
+            want = [eng._patch_fn(torch.from_numpy(patches[i:i + lanes]).to(device)).cpu().numpy()
+                    for i in range(0, PATCH_CLIENTS, lanes)]
+        want = np.concatenate(want)
+
+        def ask(i):
+            st, _, out = http(base + "/v1/patch", bodies[i % PATCH_CLIENTS])
+            if st != 200:
+                raise AssertionError(f"/v1/patch: {st} {out[:200]}")
+            return i % PATCH_CLIENTS, json.loads(out)
+
+        _build.reset_launches()
+        with CountPlain() as cp:
+            t0 = time.perf_counter()
+            one = [ask(i) for i in range(PATCH_CLIENTS)]
+            one_s = time.perf_counter() - t0
+            n_req = PATCH_CLIENTS * PATCH_REQUESTS
+            with concurrent.futures.ThreadPoolExecutor(PATCH_CLIENTS) as pool:
+                t0 = time.perf_counter()
+                many = list(pool.map(ask, range(n_req)))
+                many_s = time.perf_counter() - t0
+        launches["daemon_patch"] = dict(_build.launches)
+        plain.update({f"patch_{k}": v for k, v in cp.counts.items()})
+        gaps, exact = [], 0
+        for i, ans in one + many:
+            gap = float(np.abs(np.asarray(ans["probs"], np.float32) - want[i]).max())
+            gaps.append(gap)
+            exact += ans["probs"] == [float(p) for p in want[i]]
+            if ans["class"] != int(want[i].argmax()) or gap > PATCH_TOL:
+                raise AssertionError(f"/v1/patch answer {i} differs from the direct forward "
+                                     f"(class {ans['class']}, largest prob gap {gap})")
+        report["patch"] = {"requests_per_s_1_client": PATCH_CLIENTS / one_s,
+                           f"requests_per_s_{PATCH_CLIENTS}_clients": n_req / many_s,
+                           "largest_prob_gap": max(gaps), "bit_equal_answers": exact,
+                           "answers": len(gaps), "launches": launches["daemon_patch"]}
+        print(f"/v1/patch: {report['patch']}")
+    finally:
+        for srv, _ in servers.values():
+            srv.shutdown()
+            srv.server_close()
+        for e in engines.values():
+            e.close()
+    del body
+
+    # the streamed predicts at 16384^2 vs the resident ones, bit for bit
+    streams = {}
+    for label, fn_s, fn_r, n in (
+        ("dense_bf16", lambda **k: predict_full_streamed(slide_np, engines["bf16"].model,
+                                                         N_CLASSES, stripe_rows=STREAM_ROWS, **k),
+         lambda: predict_full_fused(slide_np, engines["bf16"].model, N_CLASSES), n_patches),
+        ("dense_int8", lambda **k: predict_full_streamed(slide_np, engines["int8"].qmodel,
+                                                         N_CLASSES, stripe_rows=STREAM_ROWS, **k),
+         lambda: predict_full_fused(slide_np, engines["int8"].qmodel, N_CLASSES), n_patches),
+        ("fcn_int8_pack8", lambda **k: predict_full_fcn_streamed(
+            slide_np, engines["int8"].qmodel_fcn, N_CLASSES, stripe_rows=STREAM_ROWS, halo=32,
+            **k),
+         lambda: predict_full_fcn(slide_np, engines["int8"].qmodel_fcn, N_CLASSES, halo=32),
+         n_equiv),
+        ("fcn_bf16", lambda **k: predict_full_fcn_streamed(
+            slide_np, engines["bf16"].model, N_CLASSES, stripe_rows=STREAM_ROWS, halo=32, **k),
+         lambda: predict_full_fcn(slide_np, engines["bf16"].model, N_CLASSES, halo=32), n_equiv),
+    ):
+        times = {"resident": [], "streamed": []}
+
+        def timed(which):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn_r() if which == "resident" else fn_s()
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+            return out
+
+        want = timed("resident")  # in turns: resident, streamed, streamed, resident
+        _build.reset_launches()
+        with CountPlain() as cp:
+            got = timed("streamed")
+        launches[f"streamed_{label}_16384"] = dict(_build.launches)
+        plain.update({f"streamed_{label}_{k}": v for k, v in cp.counts.items()})
+        if not (np.array_equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"the streamed {label} predict differs from the resident one")
+        del got, want
+        timed("streamed")
+        timed("resident")
+        t = {}
+        fn_s(prestage_all=True, timings=t)
+        best_s, best_r = min(times["streamed"]), min(times["resident"])
+        streams[label] = {
+            "patches_per_s_streamed": n / best_s, "patches_per_s_resident": n / best_r,
+            "streamed_s": times["streamed"], "resident_s": times["resident"],
+            "prestaged_staging_s": t["staging_s"], "prestaged_compute_s": t["compute_s"],
+            "upload_hidden_share": (t["staging_s"] + t["compute_s"] - best_s) / t["staging_s"],
+        }
+    # the engine routes an over-budget fcn slide to the streamed predict
+    eng = engines["int8"]
+    resident_map = eng.predict_slide(slide_np, mode="fcn")[0]
+    eng.stream_above_bytes = slide_np.nbytes // 2
+    routed, meta = eng.predict_slide(slide_np, mode="fcn")
+    if not meta["streamed"]:
+        raise AssertionError("the engine did not stream an over-budget slide")
+    if not np.array_equal(routed, resident_map):
+        raise AssertionError("the over-budget route's map differs from the resident one")
+    report["streaming"] = streams
+    print(f"streamed vs resident at {MAIN_SIDE}^2, stripe rows {STREAM_ROWS} (bit-equal maps "
+          f"and scores; the over-budget engine route equal): " + json.dumps(streams))
+    del engines, eng, slide_np
+
+    # the ViT's serving forms on phase 7's 8192^2 crop
+    vit_slide = slide[:VIT_SIDE, :VIT_SIDE].contiguous()
+    del slide
+    vit_dense = torch.from_numpy(dense_coords(VIT_SIDE, VIT_SIDE, PS, STRIDE))
+    n_vit = len(vit_dense)
+    batches = -(-n_vit // BS)
+    calib_coords = vit_dense[:: n_vit // VIT_CALIB_N][:VIT_CALIB_N]
+    calib = [gather_normalize(vit_slide, calib_coords, PS, torch.float32).cpu().numpy()]
+    vits = {}
+    for name, kw in (("vit2p8", dict(stem="conv", patch=VIT_PATCH)), ("vit_s16", {})):
+        vit = seeded_model(device, arch="vit", depth=VIT_DEPTH, **kw)
+        center_head(vit, vit.head, vit_slide, vit_dense[:: n_vit // 64][:64])
+        t0 = time.perf_counter()
+        qvit = quantize_vit(vit, calib)
+        quant_s = time.perf_counter() - t0
+        cb = vit_dense[:BS]
+        with RecordViT() as rec, torch.inference_mode():  # one batch as the predict runs it
+            qvit(gather_quantize_int8(vit_slide[None], torch.zeros((len(cb),), dtype=torch.int32),
+                                      cb, PS, qvit.input_lut, "hwc"))
+        k6_rows = check_vit_k6(rec.convs, name)
+        int_mm = check_int_mm(rec.dense, name)
+        del rec
+        row = {"quantize_s": quant_s, "k6": k6_rows, "int_mm": int_mm}
+        models = {"bf16": vit, "int8": qvit}
+        if name == "vit2p8":
+            models["folded"] = fold_vit_stem(vit)
+        outs = {}
+        for kind, model in models.items():
+            with CountPlain() as cp:
+                run_l, runs, warm_s, best_s, peak, out = run_timed(
+                    lambda: predict_full_fused(vit_slide, model, N_CLASSES),
+                    f"{name} {kind} predict, {VIT_SIDE}^2", VIT_SIDE, runs=1)
+            outs[kind] = out
+            launches[f"{name}_{kind}_8192"] = run_l
+            plain.update({f"{name}_{kind}_{k}": v for k, v in cp.counts.items()})
+            if run_l.get("flash_attention") != VIT_DEPTH * batches * runs:
+                raise AssertionError(f"{name} {kind}: K3 launched {run_l.get('flash_attention')} "
+                                     f"times over {runs} predicts, not depth x batches x runs = "
+                                     f"{VIT_DEPTH * batches * runs}")
+            row[kind] = {"patches_per_s": n_vit / best_s, "best_s": best_s, "warm_s": warm_s,
+                         "peak_gib": peak, "launches_per_predict": {
+                             k: v / runs for k, v in run_l.items() if v}}
+            if kind == "int8" and name == "vit2p8":  # where the int8 ViT's time goes
+                row[kind]["profile"] = profile_device(
+                    lambda: predict_full_fused(vit_slide, model, N_CLASSES))
+        if "folded" in outs:
+            agree = float((outs["folded"][0] == outs["bf16"][0]).mean())
+            gap = float((outs["folded"][1] - outs["bf16"][1]).abs().max())
+            row["folded"]["agreement_with_unfolded"] = agree
+            row["folded"]["largest_score_gap_to_unfolded"] = gap
+            # each against the float32 model on the crop
+            crop = vit_slide[:VIT_CHECK_SIDE, :VIT_CHECK_SIDE].contiguous()
+            f32 = copy.deepcopy(vit)
+            f32.dtype = torch.float32
+            ref_map, ref_score = predict_full_fused(crop, f32, N_CLASSES)
+            vs_f32 = {}
+            for kind in ("bf16", "folded"):
+                m, sc = predict_full_fused(crop, models[kind], N_CLASSES)
+                vs_f32[kind] = {"agreement": float((m == ref_map).mean()),
+                                "largest_score_gap": float((sc - ref_score).abs().max())}
+            row["folded"]["vs_float32_crop"] = vs_f32
+            del f32
+            print(f"folded-stem vit2p8 on {VIT_SIDE}^2: argmax agreement with the unfolded bf16 "
+                  f"model {agree}, largest |score gap| {gap}; against the float32 model on the "
+                  f"{VIT_CHECK_SIDE}^2 crop: {json.dumps(vs_f32)} (bounds: agreement >= the "
+                  f"unfolded bf16's - {FOLD_AGREE_SLACK}, gap <= {FOLD_GAP_RATIO} x its gap)")
+            if (vs_f32["folded"]["agreement"] < vs_f32["bf16"]["agreement"] - FOLD_AGREE_SLACK
+                    or vs_f32["folded"]["largest_score_gap"]
+                    > FOLD_GAP_RATIO * vs_f32["bf16"]["largest_score_gap"]):
+                raise AssertionError("the folded-stem vit2p8 is farther from the float32 model "
+                                     "than bf16 rounding")
+        row["int8_agreement_with_bf16"] = float((outs["int8"][0] == outs["bf16"][0]).mean())
+        vits[name] = row
+        print(f"{name}: " + json.dumps({k: v for k, v in row.items() if k not in ("k6",)}))
+        del vit, qvit, models, outs
+    report["vit"] = vits
+
+    called = {k: v for k, v in plain.items() if v}
+    if called:
+        raise AssertionError(f"plain versions called on the daemon's path: {called}")
+    total = {}
+    for run_l in launches.values():
+        for k, v in run_l.items():
+            total[k] = total.get(k, 0) + v
+    for name in ("gather_normalize", "gather_quantize_int8", "gather_multi_u8",
+                 "scatter_add_map", "flash_attention", "conv_int8"):
+        if not total.get(name):
+            raise AssertionError(f"phase 21 never launched {name}: {total}")
+    report["launch_totals"] = total
+    report["b7"] = time_b7(device)
+    report["launches"] = launches
+    return report
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2645,9 +3190,20 @@ def main() -> int:
             k["launches"] += run_launches.get(k["name"], 0)
             k["launches_by_path"][path] = run_launches.get(k["name"], 0)
     print(f"predict CLI (phase 20, {time.perf_counter() - t20:.1f} s): " + json.dumps(predicts))
+
+    # 21. the serving daemon: a float and an int8 engine over a checkpoint
+    # of the seeded ResNet-18 behind HTTP, the streamed predicts, the ViT's
+    # serving forms
+    t21 = time.perf_counter()
+    daemon = daemon_phase(Path(root), device)
+    for path, run_launches in daemon.pop("launches").items():
+        for k in kernels:
+            k["launches"] += run_launches.get(k["name"], 0)
+            k["launches_by_path"][path] = run_launches.get(k["name"], 0)
+    print(f"serving daemon (phase 21, {time.perf_counter() - t21:.1f} s): " + json.dumps(daemon))
     data_dir.cleanup()
 
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

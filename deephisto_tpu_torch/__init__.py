@@ -7,14 +7,17 @@ coords, NHWC activations and (H/d, W/d, C) score maps.
 
 Layers, from the entry point down:
 
+    serve/     the serving daemon: ServingEngine, its HTTP server and CLI
+               (python -m deephisto_tpu_torch.serve)
     examples/  the CLIs: the full-WSI predict (predict_full_patched) and
                the samplers' examples
     predict/   exact dense and coverage-random full-WSI prediction
                (predict_full_fused, predict_full_random_fused), the fcn
-               serving mode (predict_full_fcn), the sampler-driven
-               predictors and the visualizations (full_patched)
-    models/    ResNet and ViT families, int8 PTQ of the ResNet, flax → torch
-               weight bridge
+               serving mode (predict_full_fcn), their stripe-streamed forms
+               (streaming), the sampler-driven predictors and the
+               visualizations (full_patched)
+    models/    ResNet and ViT families, the ViT's folded-stem serving form,
+               int8 PTQ of both, flax → torch weight bridge
     train/, samplers/, slide/, anno/, geometry/, data/
                training over the annotated region sampler; the full-image
                samplers; slide previews; annotation visualization

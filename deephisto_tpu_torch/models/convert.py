@@ -2,7 +2,10 @@
 dicts of the port's :class:`~.resnet.ResNet` and :class:`~.vit.ViT`, back
 again (:func:`torch_to_flax`, for the flax-format checkpoints), and its int8
 ``qvariables`` → the quantized parameters of the port's
-:class:`~.quantize.QuantizedResNet` (:func:`flax_qvariables_to_torch`).
+:class:`~.quantize.QuantizedResNet` (:func:`flax_qvariables_to_torch`) and
+:class:`~.quantize_vit.QuantizedViT` (:func:`flax_vit_qvariables_to_torch`),
+and ``fold_vit_stem``'s variables → the tensors of the port's
+:class:`~.vit.FoldedStemViT` (:func:`flax_folded_stem_to_torch`).
 
 Each pair of models shares module names (ResNet: ``conv1``, ``bn1``,
 ``layer{i}_{j}/conv{k}``, ``bn{k}``, ``downsample_conv``, ``downsample_bn``,
@@ -134,4 +137,51 @@ def flax_qvariables_to_torch(qvariables_np) -> dict:
             "bias": torch.from_numpy(np.array(leaves["bias"], np.float32)),
             "in_inv_scale": torch.tensor(float(leaves["in_inv_scale"]), dtype=torch.float32),
         }
+    return out
+
+
+def flax_vit_qvariables_to_torch(qvariables_np) -> dict:
+    """``qvariables_np``: the ``{"params": ...}`` tree that the JAX
+    package's ``quantize_vit`` returns, with numpy leaves. Returns the
+    ``qparams`` dict that :class:`~.quantize_vit.QuantizedViT` takes, with
+    the same names: conv ``kernel_q`` HWIO → (Cout, KH, KW, Cin) int8, Dense
+    ``kernel_q`` (K, N) → (N, K) int8, every other leaf (``dequant``,
+    ``bias``, ``in_inv_scale``, ``pos_embed``, the norms' ``scale`` and
+    ``bias``, the head's (in, out) ``kernel``) as float32 tensors."""
+
+    def convert(leaves: dict) -> dict:
+        out = {}
+        for k, v in leaves.items():
+            if hasattr(v, "items"):
+                out[k] = convert(v)
+                continue
+            v = np.asarray(v)
+            if k == "kernel_q":
+                if v.dtype != np.int8:
+                    raise ValueError(f"kernel_q must be int8, got {v.dtype}")
+                v = v.transpose(3, 0, 1, 2) if v.ndim == 4 else v.T
+                out[k] = torch.from_numpy(np.ascontiguousarray(v))
+            else:
+                out[k] = torch.from_numpy(np.array(v, np.float32))
+        return out
+
+    return convert(qvariables_np["params"])
+
+
+def flax_folded_stem_to_torch(folded_params_np) -> dict[str, torch.Tensor]:
+    """The stem leaves of the ``{"params": ...}`` tree that the JAX
+    package's ``fold_vit_stem`` returns (``stem0_kernel``,
+    ``stem0_kernel_u8``, ``stem{i}_kernel``, ``stem{i}_bias``,
+    ``embed_kernel``, ``embed_bias``) → the tensors
+    :class:`~.vit.FoldedStemViT` holds: kernels HWIO → OIHW, float32. Its
+    ``"inner"`` variables (the ViT's own) go through
+    :func:`flax_vit_to_torch` into the model the folded one shares."""
+    out = {}
+    for k, v in folded_params_np["params"].items():
+        if k == "inner":
+            continue
+        v = np.array(v, np.float32)
+        if v.ndim == 4:
+            v = v.transpose(3, 2, 0, 1)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
     return out

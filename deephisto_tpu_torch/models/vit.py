@@ -1,5 +1,7 @@
 """Vision Transformer patch classifier, a port of
-``deephisto_tpu/models/vit.py`` (``_attention``, ``MHA``, ``Block``, ``ViT``).
+``deephisto_tpu/models/vit.py`` (``_attention``, ``MHA``, ``Block``, ``ViT``,
+and the conv-stem ViT's bf16 serving rewrite ``FoldedStemViT`` /
+``fold_vit_stem``).
 
 Module and parameter names follow the flax model (``embed``, ``pos_embed``,
 ``stem_conv{i}``, ``stem_bn{i}``, ``stem_gn{i}``, ``block{i}.ln1``,
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_plain, flash_attention_qkv
-from .resnet import BatchNorm, SameConv2d, cast_param
+from .resnet import BatchNorm, SameConv2d, cast_param, same_pads
 
 # From this many tokens the port takes K3 on the card. The JAX model's
 # threshold, 512, comes from a TPU sweep (deephisto_tpu/models/vit.py:56);
@@ -212,3 +214,107 @@ class ViT(nn.Module):
 
 ViTSmall = partial(ViT, dim=384, depth=6, heads=6)
 ViTBase = partial(ViT, dim=768, depth=12, heads=12)
+
+
+class FoldedStemViT(nn.Module):
+    """The bf16 serving rewrite of the conv-stem ViT (the JAX package's
+    ``FoldedStemViT``, vit.py:268-345); build it with :func:`fold_vit_stem`.
+
+    * The stem's eval BatchNorm is folded into its convs (one bias add
+      replaces each BN).
+    * The first 3×3/2 conv runs as a 2×2/1 conv over 12 channels on 2×2
+      space-to-depth input (lane ``si·2 + sj``), padded (0, 1) on both axes:
+      SAME at stride 2 on an even extent pads (0, 1), so its taps {0, 1, 2}
+      read raw rows {2i, 2i+1, 2i+2}, packed rows i and i+1.
+    * uint8 input (``wants_uint8``) takes ``stem0_kernel_u8``, the kernel with
+      /255 folded in, so the predicts hand it raw bytes (K1's uint8 mode).
+
+    The convs are bf16 ``F.conv2d`` (cuDNN on the card), as the JAX package
+    runs them on XLA's conv. The transformer tail is the original ViT
+    (``inner``, shared, not copied) entered at ``tokens=True``. Results
+    match the float model to bf16 rounding."""
+
+    wants_uint8 = True
+
+    def __init__(self, model: ViT, folded: dict):
+        super().__init__()
+        if model.stem != "conv":
+            raise ValueError(
+                f"fold_vit_stem serves stem='conv' (BatchNorm folds; got stem={model.stem!r})"
+            )
+        self.inner = model
+        self.n_down = model.n_down
+        for name, t in folded.items():
+            t = t.detach().to(torch.float32, copy=True)
+            if t.ndim == 4:  # conv kernels, OIHW, channels_last as the model's
+                t = t.contiguous(memory_format=torch.channels_last)
+            self.register_buffer(name, t)
+
+    @property
+    def stem(self) -> str:
+        return self.inner.stem
+
+    def forward(self, x):
+        """x: (B, H, W, 3) uint8 or float in [0, 1], H and W even. Returns
+        (B, num_classes) float32 logits."""
+        if x.shape[1] % 2 or x.shape[2] % 2:
+            raise ValueError(f"s2d stem needs even spatial extents, got {tuple(x.shape)}")
+        dt = self.inner.dtype
+        k0 = "stem0_kernel_u8" if x.dtype == torch.uint8 else "stem0_kernel"
+        # 2x2 space-to-depth: strided slices and a channel concat, lane si*2+sj
+        xp = torch.cat([x[:, si::2, sj::2, :] for si in (0, 1) for sj in (0, 1)], dim=-1)
+        y = xp.to(dt).permute(0, 3, 1, 2)
+        y = F.conv2d(F.pad(y, (0, 1, 0, 1)), cast_param(self, k0, dt))
+        y = F.relu(y + cast_param(self, "stem0_bias", dt).view(1, -1, 1, 1))
+        for i in range(1, self.n_down):
+            (ty, by), (lx, rx) = same_pads(y.shape[2], 3, 2), same_pads(y.shape[3], 3, 2)
+            y = F.conv2d(F.pad(y, (lx, rx, ty, by)), cast_param(self, f"stem{i}_kernel", dt),
+                         stride=2)
+            y = F.relu(y + cast_param(self, f"stem{i}_bias", dt).view(1, -1, 1, 1))
+        y = F.conv2d(y, cast_param(self, "embed_kernel", dt))
+        y = y + cast_param(self, "embed_bias", dt).view(1, -1, 1, 1)
+        return self.inner(y.permute(0, 2, 3, 1), tokens=True)
+
+
+@torch.no_grad()
+def fold_vit_stem(model: ViT) -> FoldedStemViT:
+    """The :class:`FoldedStemViT` serving rewrite of a conv-stem ViT (the JAX
+    ``fold_vit_stem``, vit.py:348-389, which returns the model and its
+    variables; here one module holds the folded tensors, on ``model``'s
+    device, and shares ``model`` as its tail). Refuses any stem but "conv".
+
+    The fold runs on the host in float64 from the float32 weights, then
+    float32: per stem conv ``i``, ``s = γ / sqrt(σ² + 1e-5)``, kernel ``w·s``
+    and bias ``β − μ·s``; the first kernel relocated into the 2×2 s2d form
+    (``kp[:, lane·ci:(lane+1)·ci, dy//2, dx//2] = w[:, :, dy, dx]``, lane
+    ``(dy%2)·2 + dx%2``, OIHW) with a ``/255`` copy; the embed conv's kernel
+    and bias as they are."""
+    if model.stem != "conv":
+        raise ValueError(
+            f"fold_vit_stem serves stem='conv' (BatchNorm folds; got stem={model.stem!r})"
+        )
+    folded: dict[str, torch.Tensor] = {}
+    for i in range(model.n_down):
+        k = getattr(model, f"stem_conv{i}").weight.detach().cpu().double()  # (co, ci, kh, kw)
+        bn = getattr(model, f"stem_bn{i}")
+        s = bn.weight.detach().cpu().double() / torch.sqrt(
+            bn.running_var.detach().cpu().double() + 1e-5)
+        kf = k * s[:, None, None, None]
+        bias = bn.bias.detach().cpu().double() - bn.running_mean.detach().cpu().double() * s
+        if i == 0:
+            co, ci, kh, kw = kf.shape
+            kp = torch.zeros((co, 4 * ci, 2, 2), dtype=torch.float64)
+            for dy in range(kh):
+                for dx in range(kw):
+                    lane = (dy % 2) * 2 + dx % 2
+                    kp[:, lane * ci:(lane + 1) * ci, dy // 2, dx // 2] = kf[:, :, dy, dx]
+            folded["stem0_kernel"] = kp.float()
+            folded["stem0_kernel_u8"] = (kp / 255.0).float()
+            folded["stem0_bias"] = bias.float()
+        else:
+            folded[f"stem{i}_kernel"] = kf.float()
+            folded[f"stem{i}_bias"] = bias.float()
+    folded["embed_kernel"] = model.embed.weight.detach().float()
+    folded["embed_bias"] = model.embed.bias.detach().float()
+    dev = model.pos_embed.device
+    return FoldedStemViT(model, {k: v.to(dev) for k, v in folded.items()}).eval()

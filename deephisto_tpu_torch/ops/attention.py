@@ -85,9 +85,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float):
 
 def attention_plain(q, k, v) -> torch.Tensor:
     """The JAX ViT's jnp attention (vit.py:135-137), line for line: Q·Kᵀ in
-    the input dtype, times the scale in the input dtype, softmax in f32 and
-    back, then P·V in the input dtype."""
-    scale = q.shape[-1] ** -0.5
+    the input dtype, times the scale in the input dtype (the Python float
+    rounded to it first, as JAX's weak typing does: at Dh 32 or 128 a bf16
+    1/√Dh is not the f32 one), softmax in f32 and back, then P·V in the
+    input dtype."""
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
     attn = torch.matmul(q, k.transpose(-1, -2)) * scale
     attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
     return torch.matmul(attn, v)

@@ -1,6 +1,7 @@
 """Full-WSI prediction: the exact dense path, the coverage-random path, the
-fcn serving mode, and the sampler-driven predictors and visualizations of
-the predict CLI."""
+fcn serving mode, their stripe-streamed forms for slides larger than the
+card's budget, and the sampler-driven predictors and visualizations of the
+predict CLI."""
 
 from .fcn import (
     FcnStagedSlide,
@@ -25,6 +26,7 @@ from .pipeline import (
     predict_full_random_fused,
     stage_packed_slide,
 )
+from .streaming import predict_full_fcn_streamed, predict_full_streamed
 
 __all__ = [
     "FcnStagedSlide",
@@ -37,8 +39,10 @@ __all__ = [
     "model_input",
     "perform_and_save_visualizations",
     "predict_full_fcn",
+    "predict_full_fcn_streamed",
     "predict_full_fused",
     "predict_full_random_fused",
+    "predict_full_streamed",
     "process_on_device",
     "s2d_pack_image",
     "stage_for_fcn",

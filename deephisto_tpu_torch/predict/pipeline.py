@@ -9,11 +9,12 @@ softmax and K2 (stitch), all queued on the current stream without waiting
 for the card. The host reads back only the final argmax map.
 
 K1 runs in the mode the model takes: gather + /255 to bf16 for a float
-model; for the int8 ResNet (which holds an ``input_lut``) its int8 mode, on
-a one-slide view of the slide, which quantizes every byte and writes the
-windows in the layout the model's stem takes (``input_layout``), so the
-model gets int8 and quantizes nothing; the uint8 gather for any other model
-that declares ``wants_uint8``. A :class:`PackedSlide` is gathered in its 4×4
+model; for an int8 model (the int8 ResNet or ViT, which hold an
+``input_lut``) its int8 mode, on a one-slide view of the slide, which
+quantizes every byte and writes the windows in the layout the model's stem
+takes (``input_layout``), so the model gets int8 and quantizes nothing; the
+uint8 gather for any other model that declares ``wants_uint8`` (the
+folded-stem ViT). A :class:`PackedSlide` is gathered in its 4×4
 space-to-depth units (coords and patch size divided by 4, 48 channels),
 which K1 takes in every mode.
 """
@@ -170,6 +171,12 @@ class BatchPredictor:
     def __call__(self, score_map: torch.Tensor, coords: torch.Tensor, real: int) -> None:
         """Add the scores of the first ``real`` patches at raw (N, 2) int32
         ``coords`` into ``score_map``."""
+        logits = self.logits(coords)
+        scatter_add_map_exact(score_map, coords[:real], logits[:real], self.ps, self.d)
+
+    def logits(self, coords: torch.Tensor) -> torch.Tensor:
+        """K1 and the forward (and the softmax) of the patches at raw (N, 2)
+        int32 ``coords`` of the slide: (N, n_classes) scores."""
         cg = coords // self.unit if self.unit > 1 else coords
         ps = self.ps // self.unit
         if self.lut is not None:  # K1's int8 mode on a one-slide view of the slide
@@ -182,7 +189,7 @@ class BatchPredictor:
         logits = self.model(x, **self.kwargs)
         if self.softmax:
             logits = torch.softmax(logits.float(), dim=-1)
-        scatter_add_map_exact(score_map, coords[:real], logits[:real], self.ps, self.d)
+        return logits
 
 
 def predict_full_fused(
@@ -200,8 +207,9 @@ def predict_full_fused(
 
     image: (H, W, 3) uint8, numpy or a tensor (kept where it is if already on
     ``device``), or a :class:`PackedSlide` for a model with the s2d stem.
-    model: a float model (ResNet or ViT) or the int8 ResNet (``input_lut``)
-    on ``device``; it is put in eval mode.
+    model: a float model (ResNet or ViT, or the folded-stem ViT) or an int8
+    model (``input_lut``: the int8 ResNet or ViT) on ``device``; it is put
+    in eval mode.
     device: None runs on the current CUDA device and raises without one;
     ``"cpu"`` runs the plain versions of the kernels.
 

@@ -77,7 +77,8 @@ def test_flash_ref_matches_jax_flash_kernel(shape, name):
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
-@pytest.mark.parametrize("shape", [(2, 3, 50, 16), (1, 2, 196, 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 50, 16), (1, 2, 196, 64), (2, 2, 50, 32),
+                                   (1, 2, 40, 128)])
 def test_attention_plain_matches_jax_jnp_branch(shape, name):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=1), name)
     want = _j32(_attention(jq, jk, jv, use_flash=False))

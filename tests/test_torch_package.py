@@ -56,6 +56,19 @@ PREDICT_CLI_MODULES = {
 }
 
 
+# the serving slice's modules: the daemon, the streamed predicts and the
+# ViT's int8 form
+SERVE_MODULES = {
+    f"deephisto_tpu_torch.{m}" for m in (
+        "serve", "serve.engine", "serve.server", "serve.__main__", "predict.streaming",
+        "models.quantize_vit",
+    )
+}
+
+
+ALL_MODULES = TRAINING_MODULES | INT8_MODULES | CLI_MODULES | PREDICT_CLI_MODULES | SERVE_MODULES
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Nor the host libraries the card's machine lacks: msgpack, yaml and
     torchvision never, PIL and matplotlib only inside the functions that
@@ -64,7 +77,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import importlib, pkgutil, sys\n"
         "import deephisto_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        f"missing = set({sorted(TRAINING_MODULES | INT8_MODULES | CLI_MODULES | PREDICT_CLI_MODULES)})"
+        f"missing = set({sorted(ALL_MODULES)})"
         " - set(names)\n"
         "assert len(names) >= 50 and not missing, (names, missing)\n"
         "for n in names: importlib.import_module(n)\n"

@@ -31,7 +31,7 @@ from test_torch_resnet import flax_and_torch_resnet
 
 from deephisto_tpu.models import quantize as jq
 from deephisto_tpu.predict.fcn import _host_pack_s2d as jax_host_pack
-from deephisto_tpu_torch.models import ViT, quantize_model
+from deephisto_tpu_torch.models import QuantizedViT, ViT, quantize_model
 from deephisto_tpu_torch.models import quantize as tq
 from deephisto_tpu_torch.models.convert import flax_qvariables_to_torch
 from deephisto_tpu_torch.models.patch_cls_simple import get_model
@@ -255,11 +255,15 @@ def test_the_int8_model_shares_no_storage_with_the_float_model():
 
 
 def test_quantize_model_dispatches_the_resnet_and_refuses_the_vit():
+    """``quantize_model`` sends a ResNet to ``quantize_resnet`` and, since the
+    ViT's W8A8 PTQ is ported (``models/quantize_vit.py``), a ViT to
+    ``quantize_vit``: it no longer refuses the ViT."""
     tm = _pair("s2d")[2]
     model = quantize_model(tm, _calib())
     assert isinstance(model, tq.QuantizedResNet) and model.wants_uint8
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        quantize_model(ViT(5, depth=1, dim=64, heads=2, dtype=torch.float32), _calib())
+    vit = ViT(5, depth=1, dim=64, heads=2, dtype=torch.float32, img_size=SIZE)
+    qvit = quantize_model(vit, _calib())
+    assert isinstance(qvit, QuantizedViT) and qvit.wants_uint8
 
 
 def test_packed_options_are_refused_where_the_jax_package_refuses_them():

@@ -204,14 +204,3 @@ def test_get_model_and_seeded_init():
         out = m(torch.rand(2, 32, 32, 3))
     assert out.dtype == torch.float32 and out.shape == (2, 5)
 
-
-def test_vit_is_not_ported_yet():
-    """``arch="vit"`` builds the port's ViT now; what of the ViT family is
-    not ported yet is its int8 serving form (the JAX ``quantize_vit`` and
-    ``FoldedStemViT``), which ``quantize_model`` refuses, naming ROADMAP."""
-    from deephisto_tpu_torch.models import ViT, quantize_model
-
-    m = get_model(5, arch="vit", depth=1, dtype=torch.float32, input_size=64)
-    assert isinstance(m, ViT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_model(m, [np.zeros((1, 64, 64, 3), np.float32)])
