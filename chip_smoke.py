@@ -171,7 +171,35 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     launched on the phase's paths, and no plain version called there (the
     kernels', the int8 Dense's, K3's and the ViT's plain attention). Also
     B7 (``gumbel_topk``, ``coverage_cell_topk``, torch ops) timed apart at
-    the random predicts' shapes beside its byte bound.
+    the random predicts' shapes beside its byte bound;
+22. the parallel paths (``deephisto_tpu_torch.parallel``). World 1 over
+    NCCL (``parallel.initialize`` on a one-rank file store): the 16384²
+    bf16 ResNet-18 through ``predict_full_fused(mesh=)`` and
+    ``predict_full_spatial`` bit-equal to ``predict_full_fused``, phase 13's
+    headline int8 model through ``predict_full_fcn_spatial`` (host-packed
+    s2d8 bands) bit-equal to ``predict_full_fcn``, both routes from the same
+    host array (the single one through ``stage_for_fcn``'s host pack; the
+    pre-staged headline timed beside them), and data-parallel bf16 vit2p8
+    and ResNet-18 (s2d, phase 16's) steps at the training path's batch of
+    256 equal to the single steps, each timed beside its single call in
+    turns, with the mesh route's overhead and its busy share under the
+    profiler; then
+    ``make_fused_epoch(mesh=)`` of phase 16's recipe in f32 (crop and flips,
+    presampled and sampling every step) against the single epoch (losses
+    within rtol 2e-4, correct counts equal, K1's multi mode launched). Then
+    2 ranks over gloo sharing the card (``torch.multiprocessing``, the
+    kernels built once before), each rank launching its kernels: the three
+    predicts against world 1 (argmax equal; DP scores within 1e-5 of the
+    largest |score|, fcn scores within 1e-5), ResNet-18 and vit2p8
+    data-parallel steps at batch 256 against world 1 (f32 with TF32 off
+    over 2 steps: rtol 2e-4; bf16, 1 step: the loss within ``LOSS_DIFF``),
+    the two fused epochs against the single ones (as at world 1), a
+    tensor-parallel vit2p8 step (BN conv stem) and a 2-stage pipeline step
+    of vit2p8 with the GroupNorm stem (8 microbatches of 32) at batch 256
+    against the single step in f32 (the loss within 1e-5 relative, every
+    gradient within 1e-4); the CUDA tensors' hops host-staged under gloo
+    (the explicit branch ``parallel/_comm.py:host_staged``), and each
+    path's launches by rank. A failure in any rank fails the phase.
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -2809,6 +2837,475 @@ def daemon_phase(root: Path, device) -> dict:
 
 
 
+# ---- 22. the parallel paths --------------------------------------------------
+
+PAR_WORLD = 2  # ranks sharing the one card over gloo
+PAR_TIMEOUT = 300  # seconds the spawned ranks may take together
+PAR_STEP_BATCH = BS  # global batch of the parallel train steps: the training path's
+PAR_MICROBATCHES = 8  # the pipeline's microbatches (8 of 32 rows at 256)
+PAR_EPOCH_STEPS = 3  # steps of each data-parallel fused epoch
+PAR_STEP_RTOL = 2e-4  # f32 data-parallel steps and epochs vs world 1 (tests/test_multichip.py's)
+PAR_F32_LOSS_REL = 1e-5  # f32 TP and PP steps vs the single step: the loss, relative
+PAR_F32_GRAD_REL = 1e-4  # and every gradient's ||g - g'|| / ||g'||
+PAR_SCORE_REL = 1e-5  # world-2 predict scores vs world 1, of the largest |score|
+PAR_FCN_ATOL = 1e-5  # world-2 fcn scores vs the single fcn (test_multichip.py's bound)
+
+
+def par_models(device):
+    """Phase 22's seeded models: the bf16 ResNet-18 of phase 4 (its head
+    centred), the int8 s2d ResNet-18 of phases 11-13 (pack_l1), and the
+    slide."""
+    from deephisto_tpu_torch.predict import dense_coords
+
+    slide = seeded_slide(device)
+    dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
+    spread = dense[:: max(1, len(dense) // 64)][:64]
+    r18 = seeded_model(device, depth=18)
+    center_head(r18, r18.fc, slide, spread)
+    s2d = seeded_model(device, depth=18, stem="s2d")
+    _, qpack, _ = seeded_int8(device, s2d, slide, dense)
+    return slide, r18, qpack
+
+
+def par_train_models(device, kind: str, dtype):
+    """A seeded train-mode model of phase 22's steps: phase 16's ResNet-18
+    (s2d stem), vit2p8 (BN conv stem) or vit2p8 with the GroupNorm stem (the
+    pipeline's)."""
+    from deephisto_tpu_torch.models.patch_cls_simple import get_model, init_model
+
+    kw = {"r18": dict(depth=18, stem="s2d"),
+          "vit2p8": dict(arch="vit", depth=VIT_DEPTH, stem="conv", patch=VIT_PATCH),
+          "vit2p8_gn": dict(arch="vit", depth=VIT_DEPTH, stem="conv_gn", patch=VIT_PATCH)}[kind]
+    return init_model(get_model(N_CLASSES, dtype=dtype, **kw), seed=SEED).to(device)
+
+
+def par_batch(device, n: int = PAR_STEP_BATCH):
+    """One seeded global batch, the same on every rank (a CUDA generator)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    x = torch.rand((n, PS, PS, 3), generator=gen, device=device)
+    y = torch.randint(0, N_CLASSES, (n,), generator=gen, device=device)
+    return x, y
+
+
+def par_steps(step, state, x, y, n: int) -> list:
+    out = []
+    for _ in range(n):
+        state, loss, _ = step(state, x, y)
+        out.append(float(loss))
+    return out
+
+
+def par_grads(model) -> dict:
+    """The gradients of the last step by canonical parameter name, on the
+    host."""
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def grad_rel(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-tensor ||g - g'|| / ||g'|| over ``want``'s tensors."""
+    rel = {}
+    for name, ref in want.items():
+        denom = float(ref.norm())
+        rel[name] = float((got[name].cpu() - ref).norm()) / (denom if denom > 0 else 1.0)
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def par_dp_steps(device, mesh, dtype, kind: str, n_steps: int) -> dict:
+    """``n_steps`` data-parallel steps (``make_steps(model, mesh)``) of a
+    seeded model on the seeded global batch; losses and the step seconds."""
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.train import create_train_state
+
+    model = par_train_models(device, kind, dtype)
+    state = create_train_state(model, 1e-3)
+    step, _ = make_steps(model, mesh)
+    x, y = par_batch(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = par_steps(step, state, x, y, n_steps)
+    torch.cuda.synchronize()
+    return {"losses": losses, "s_per_step": (time.perf_counter() - t0) / n_steps}
+
+
+def par_single_step(device, kind: str):
+    """One float32 single-device step on the global batch: (loss,
+    gradients by name on the host)."""
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.train import create_train_state
+
+    model = par_train_models(device, kind, torch.float32)
+    x, y = par_batch(device)
+    _, loss, _ = make_steps(model)[0](create_train_state(model, 1e-3), x, y)
+    return float(loss), par_grads(model)
+
+
+def par_sampler(pairs):
+    """Phase 14's sampler over the training slides, on this process's card."""
+    from deephisto_tpu_torch.samplers import AnnoRegionRndSampler
+
+    return AnnoRegionRndSampler(pairs, layer=TRAIN_LAYER, patch_size=PS,
+                                patches_from_one_region=4, one_image_for_batch=True,
+                                verbose=False)
+
+
+def par_fused_epochs(device, sampler, mesh) -> dict:
+    """Phase 16's recipe (ResNet-18 (s2d), lr 1e-3, batch ``BS``) in float32
+    with phase 14's crop (``TRAIN_CROP``) and flips, through
+    ``make_fused_epoch(mesh=)``: one epoch of ``PAR_EPOCH_STEPS`` steps on
+    presampled coordinates and one that samples every step. Losses,
+    correct counts and each epoch's launches."""
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.models.patch_cls_simple import make_fused_epoch
+    from deephisto_tpu_torch.train import create_train_state
+
+    out = {}
+    for name, chunk in (("presampled", 8), ("per_step", 0)):
+        model = par_train_models(device, "r18", torch.float32)
+        state = create_train_state(model, 1e-3)
+        epoch = make_fused_epoch(model, sampler, BS, PAR_EPOCH_STEPS, mesh=mesh,
+                                 crop_pad=TRAIN_CROP, presample_chunk=chunk)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        _, losses, corrects = epoch(state, torch.Generator().manual_seed(SEED + 16))
+        torch.cuda.synchronize()
+        out[name] = {"losses": losses.tolist(), "corrects": corrects.tolist(),
+                     "launches": {k: v for k, v in _build.launches.items() if v}}
+    return out
+
+
+def epochs_match(got: dict, want: dict) -> list:
+    """What differs between two ``par_fused_epochs`` results: losses beyond
+    ``PAR_STEP_RTOL``, any correct count."""
+    bad = []
+    for name in want:
+        g, w = got[name], want[name]
+        if not np.allclose(g["losses"], w["losses"], rtol=PAR_STEP_RTOL, atol=0):
+            bad.append(f"{name} epoch losses {g['losses']} vs {w['losses']}")
+        if g["corrects"] != w["corrects"]:
+            bad.append(f"{name} epoch correct counts {g['corrects']} vs {w['corrects']}")
+    return bad
+
+
+def f32_step_faults(o: dict) -> bool:
+    """A float32 TP or PP step off the single step beyond the f32 bounds."""
+    return (abs(o["loss"] - o["loss_single"]) > PAR_F32_LOSS_REL * abs(o["loss_single"])
+            or o["grad_rel"][0] > PAR_F32_GRAD_REL)
+
+
+def par_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One rank of phase 22's world over gloo on the shared card: the three
+    predicts, the data-parallel steps and fused epochs, the tensor- and
+    pipeline-parallel vit2p8 steps; its readings and launches go to
+    ``root``."""
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.parallel import (
+        create_pipeline_state,
+        initialize,
+        make_mesh,
+        make_pipeline_steps,
+        make_pp_mesh,
+        pipeline_params_to_canonical,
+        place_vit_tensor_parallel,
+        predict_full_fcn_spatial,
+        predict_full_spatial,
+    )
+    from deephisto_tpu_torch.parallel._comm import gather_dim, host_staged
+    from deephisto_tpu_torch.parallel.tensor import vit_tp_spec
+    from deephisto_tpu_torch.predict import predict_full_fused
+    from deephisto_tpu_torch.train import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deephisto_tpu_torch._device import resolve_device
+
+    initialize(init_method=f"file://{store}", world_size=world, rank=rank, backend="gloo")
+    device = resolve_device()
+    mesh = make_mesh()
+    out = {"launches": {}, "seconds": {}}
+
+    def path(name, fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {k: v for k, v in _build.launches.items() if v}
+        torch.cuda.empty_cache()  # the other rank shares the card
+        return res
+
+    slide, r18, qpack = par_models(device)
+    ref = torch.load(Path(root) / "world1.pt", weights_only=False)
+    path("dp_predict_warm", lambda: predict_full_fused(slide, r18, N_CLASSES, mesh=mesh))
+    am, score = path("dp_predict", lambda: predict_full_fused(slide, r18, N_CLASSES, mesh=mesh))
+    out["dp_predict"] = {"agree": float((am == ref["map"]).mean()),
+                         "score_rel": float((score.cpu() - ref["score"]).abs().max()
+                                            / ref["score"].abs().max())}
+    am = path("spatial", lambda: predict_full_spatial(slide, r18, N_CLASSES, mesh))
+    out["spatial"] = {"agree": float((am == ref["map"]).mean())}
+    host = slide.cpu().numpy()
+    am, score = path("fcn_spatial", lambda: predict_full_fcn_spatial(
+        host, qpack, N_CLASSES, mesh, tile=FCN_TILE, halo=FCN_HALO, tile_batch=FCN_TB))
+    out["fcn_spatial"] = {"agree": float((am == ref["fcn_map"]).mean()),
+                          "score_abs": float((score.cpu() - ref["fcn_score"]).abs().max())}
+    del slide, r18, qpack, host
+    torch.cuda.empty_cache()
+    out["host_staged"] = host_staged(mesh.get_group("data"), torch.zeros(1, device=device))
+
+    # data-parallel steps against world 1: f32 (TF32 off) and bf16; the
+    # fused epochs (K1-multi's rows of each global batch) against the single
+    for kind in ("r18", "vit2p8"):
+        out[f"dp_{kind}_f32"] = path(f"dp_{kind}_f32", lambda: par_dp_steps(
+            device, mesh, torch.float32, kind, 2))
+        out[f"dp_{kind}_bf16"] = path(f"dp_{kind}_bf16", lambda: par_dp_steps(
+            device, mesh, torch.bfloat16, kind, 1))
+    epochs = path("dp_fused_epochs", lambda: par_fused_epochs(device, par_sampler(ref["pairs"]),
+                                                              mesh))
+    out["dp_fused_epoch_faults"] = epochs_match(epochs, ref["epochs"])
+    del out["launches"]["dp_fused_epochs"]  # counted by epoch, below
+    for name, e in epochs.items():
+        out["launches"][f"dp_fused_epoch_{name}"] = e.pop("launches")
+    out["dp_fused_epochs"] = epochs
+
+    # vit2p8 tensor parallel (BN conv stem), then the pipeline (GroupNorm
+    # stem), float32 (TF32 off): in bf16 the MLP's partial products round to
+    # bf16 before their reduce, a difference of the decomposition itself
+    x, y = par_batch(device)
+    loss1, grads1 = ref["single"]["vit2p8"]
+    model = par_train_models(device, "vit2p8", torch.float32)
+    tp_mesh = make_mesh(model=world)
+    state = place_vit_tensor_parallel(create_train_state(model, 1e-3), tp_mesh)
+    step = make_steps(model, tp_mesh)[0]
+    _, loss, _ = path("tp_vit2p8", lambda: step(state, x, y))
+    grads = {n: (gather_dim(g, vit_tp_spec(n, g).index("model"), tp_mesh.get_group("model"))
+                 if "model" in vit_tp_spec(n, g) else g)
+             for n, g in ((n, p.grad.detach()) for n, p in model.named_parameters()
+                          if p.grad is not None)}
+    out["tp_vit2p8"] = {"loss": float(loss), "loss_single": loss1,
+                        "grad_rel": grad_rel(grads, grads1),
+                        "fc1_rows": model.block0.fc1.weight.shape[0]}
+    del model, state, step, grads
+    torch.cuda.empty_cache()
+    loss1, grads1 = ref["single"]["vit2p8_gn"]
+    pp_mesh = make_pp_mesh(stages=world)
+    base = par_train_models(device, "vit2p8_gn", torch.float32)
+    state = create_pipeline_state(base, pp_mesh, 1e-3)
+    step = make_pipeline_steps(base, pp_mesh, n_microbatches=PAR_MICROBATCHES)[0]
+    _, loss, _ = path("pp_vit2p8_gn", lambda: step(state, x, y))
+    net = state.model
+    k = len(net.blocks)
+    first = pp_mesh.get_local_rank("stage") * k
+    grads = {f"vit.{n}": g for n, g in par_grads(net.vit).items()}
+    for i, b in enumerate(net.blocks):
+        grads.update({f"block{first + i}.{n}": g for n, g in par_grads(b).items()})
+    mine = {n: g for n, g in grads1.items() if f"vit.{n}" in grads or n in grads}
+    got = {n: grads.get(f"vit.{n}", grads.get(n)) for n in mine}
+    out["pp_vit2p8_gn"] = {"loss": float(loss), "loss_single": loss1,
+                           "grad_rel": grad_rel(got, mine), "blocks": k,
+                           "microbatch_rows": PAR_STEP_BATCH // PAR_MICROBATCHES,
+                           "canonical_keys": len(pipeline_params_to_canonical(state, pp_mesh))}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(out, Path(root) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def parallel_phase(root: Path, pairs: list, device) -> dict:
+    """Phase 22: the mesh routes at world 1 over NCCL against the single
+    calls (bit for bit, timed beside them), the data-parallel fused epochs
+    against the single epochs, then a world of ``PAR_WORLD`` ranks over
+    gloo sharing the card."""
+    import torch.multiprocessing as mp
+
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.parallel import (
+        initialize,
+        make_mesh,
+        predict_full_fcn_spatial,
+        predict_full_spatial,
+    )
+    from deephisto_tpu_torch.predict import predict_full_fcn, predict_full_fused, stage_for_fcn
+    from deephisto_tpu_torch.train import create_train_state
+
+    result = {"launches": {}}
+    initialize(init_method=f"file://{root / 'nccl_store'}", world_size=1, rank=0)
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"world 1 on the card joined over {backend}, not NCCL")
+    mesh = make_mesh()
+    slide, r18, qpack = par_models(device)
+
+    def timed_pair(label, single_fn, mesh_fn, same, warm=True):
+        """In turns: single, mesh, mesh, single after a warm-up of each
+        (``warm``); best seconds of each and the mesh route's launches."""
+        if warm:
+            single_fn(), mesh_fn()
+        best = {"single": float("inf"), "mesh": float("inf")}
+        for which in ("single", "mesh", "mesh", "single"):
+            torch.cuda.synchronize()
+            if which == "mesh":
+                _build.reset_launches()
+            t0 = time.perf_counter()
+            out = (single_fn if which == "single" else mesh_fn)()
+            torch.cuda.synchronize()
+            best[which] = min(best[which], time.perf_counter() - t0)
+            if which == "mesh":
+                launched = {k: v for k, v in _build.launches.items() if v}
+                got = out
+            else:
+                want = out
+        if not same(got, want):
+            raise AssertionError(f"{label}: the mesh route at world 1 is not the single call bit "
+                                 "for bit")
+        result["launches"][f"{label}_w1"] = launched
+        prof = profile_device(mesh_fn)
+        row = {"single_s": best["single"], "mesh_s": best["mesh"],
+               "overhead": best["mesh"] / best["single"] - 1.0, "bit_equal": True,
+               "mesh_busy_share": prof["device_busy_share"], "mesh_kernel_ms": prof["kernel_ms"],
+               "mesh_groups_ms": dict(list(prof["groups_ms"].items())[:6])}
+        print(f"phase 22, world 1 (NCCL): {label}: single {best['single']:.4f} s, mesh "
+              f"{best['mesh']:.4f} s (overhead {100 * row['overhead']:+.1f} %), bit-equal; "
+              f"launches {launched}; the mesh route's busy share "
+              f"{prof['device_busy_share']:.3f} ({prof['kernel_ms']:.1f} ms of kernels)")
+        return row, want
+
+    def maps_equal(a, b):
+        return np.array_equal(a[0], b[0]) and bool(torch.equal(a[1], b[1]))
+
+    row, (ref_map, ref_score) = timed_pair(
+        "dp_predict", lambda: predict_full_fused(slide, r18, N_CLASSES),
+        lambda: predict_full_fused(slide, r18, N_CLASSES, mesh=mesh), maps_equal)
+    result["dp_predict"] = row
+    result["spatial"], _ = timed_pair(
+        "spatial", lambda: predict_full_fused(slide, r18, N_CLASSES),
+        lambda: (predict_full_spatial(slide, r18, N_CLASSES, mesh), None),
+        lambda a, b: np.array_equal(a[0], b[0]))
+    # the banded fcn packs its bands on the host from the host array; the
+    # single route starts from the same array (stage_for_fcn's ingest path)
+    host = slide.cpu().numpy()
+    fcn_kw = dict(tile=FCN_TILE, halo=FCN_HALO, tile_batch=FCN_TB)
+    row, (fcn_map, fcn_score) = timed_pair(
+        "fcn_spatial_int8",
+        lambda: predict_full_fcn(stage_for_fcn(host, tile=FCN_TILE, halo=FCN_HALO, pack=8),
+                                 qpack, N_CLASSES, **fcn_kw),
+        lambda: predict_full_fcn_spatial(host, qpack, N_CLASSES, mesh, **fcn_kw), maps_equal,
+        warm=False)  # host-bound: nothing to warm after phase 13
+    staged = stage_for_fcn(slide, tile=FCN_TILE, halo=FCN_HALO, pack=8, pre_tile=True)
+    staged_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_full_fcn(staged, qpack, N_CLASSES, **fcn_kw)
+        torch.cuda.synchronize()
+        staged_s.append(time.perf_counter() - t0)
+    row["single_prestaged_s"] = min(staged_s)  # phase 13's headline: staged outside the timing
+    result["fcn_spatial_int8"] = row
+    ref_score_cpu, fcn_score_cpu = ref_score.cpu(), fcn_score.cpu()
+    del slide, r18, qpack, host, staged, ref_score, fcn_score
+    torch.cuda.empty_cache()
+
+    # data-parallel steps at world 1 against the single steps, bf16, the
+    # training path's batch
+    def dp_step(kind, with_mesh):
+        model = par_train_models(device, kind, torch.bfloat16)
+        step = make_steps(model, mesh if with_mesh else None)[0]
+        x, y = par_batch(device)
+        state = create_train_state(model, 1e-3)
+        return lambda: float(step(state, x, y)[1])
+
+    for kind in ("vit2p8", "r18"):
+        result[f"dp_{kind}_step"], _ = timed_pair(
+            f"dp_{kind}_step", dp_step(kind, False), dp_step(kind, True), lambda a, b: a == b)
+        torch.cuda.empty_cache()
+    # what world 2 is held to: the data-parallel trajectories and fused
+    # epochs at world 1, the single f32 steps of the TP and PP models
+    w1 = {}
+    for kind in ("r18", "vit2p8"):
+        w1[f"{kind}_f32"] = par_dp_steps(device, mesh, torch.float32, kind, 2)["losses"]
+        w1[f"{kind}_bf16"] = par_dp_steps(device, mesh, torch.bfloat16, kind, 1)["losses"]
+    torch.cuda.empty_cache()
+    sampler = par_sampler(pairs)
+    single_epochs = par_fused_epochs(device, sampler, None)
+    epochs = par_fused_epochs(device, sampler, mesh)
+    bad = epochs_match(epochs, single_epochs)
+    if bad:
+        raise AssertionError("phase 22, world 1: make_fused_epoch(mesh=) vs the single epoch: "
+                             + "; ".join(bad))
+    for name, e in epochs.items():
+        result["launches"][f"dp_fused_epoch_{name}_w1"] = e.pop("launches")
+        if not result["launches"][f"dp_fused_epoch_{name}_w1"].get("gather_multi_u8"):
+            raise AssertionError(f"the {name} data-parallel epoch launched no gather_multi_u8")
+        single_epochs[name].pop("launches")
+    result["dp_fused_epochs_w1"] = epochs
+    print(f"phase 22, world 1 (NCCL): make_fused_epoch(mesh=) of phase 16's recipe in f32 "
+          f"(crop {TRAIN_CROP}, batch {BS}) vs the single epoch: {json.dumps(epochs)} vs "
+          f"{json.dumps(single_epochs)}")
+    single = {kind: par_single_step(device, kind) for kind in ("vit2p8", "vit2p8_gn")}
+    torch.save({"map": ref_map, "score": ref_score_cpu, "fcn_map": fcn_map,
+                "fcn_score": fcn_score_cpu, "pairs": pairs, "epochs": single_epochs,
+                "single": single}, root / "world1.pt")
+    del single
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # world 2 over gloo, the ranks sharing the card
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(par_rank, args=(PAR_WORLD, str(root / "gloo_store"), str(root)),
+                             nprocs=PAR_WORLD, join=False, start_method="spawn")
+    while not ctx.join(timeout=10):
+        if time.perf_counter() - t0 > PAR_TIMEOUT:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 22's {PAR_WORLD} ranks did not finish in {PAR_TIMEOUT} s")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(PAR_WORLD)]
+    result["world2_s"] = time.perf_counter() - t0
+    failures = []
+    for r, o in enumerate(ranks):
+        if o["dp_predict"]["agree"] != 1.0 or o["dp_predict"]["score_rel"] > PAR_SCORE_REL:
+            failures.append(f"rank {r} DP predict {o['dp_predict']}")
+        if o["spatial"]["agree"] != 1.0:
+            failures.append(f"rank {r} spatial predict {o['spatial']}")
+        if o["fcn_spatial"]["agree"] != 1.0 or o["fcn_spatial"]["score_abs"] > PAR_FCN_ATOL:
+            failures.append(f"rank {r} fcn spatial {o['fcn_spatial']}")
+        for kind in ("r18", "vit2p8"):
+            got, want = o[f"dp_{kind}_f32"]["losses"], w1[f"{kind}_f32"]
+            if not np.allclose(got, want, rtol=PAR_STEP_RTOL, atol=0):
+                failures.append(f"rank {r} DP {kind} f32 losses {got} vs world 1 {want}")
+            got, want = o[f"dp_{kind}_bf16"]["losses"], w1[f"{kind}_bf16"]
+            if abs(got[0] - want[0]) > LOSS_DIFF:
+                failures.append(f"rank {r} DP {kind} bf16 loss {got} vs world 1 {want}")
+        failures += [f"rank {r} {f}" for f in o["dp_fused_epoch_faults"]]
+        for name in ("tp_vit2p8", "pp_vit2p8_gn"):
+            if f32_step_faults(o[name]):
+                failures.append(f"rank {r} {name} {o[name]}")
+        if not o["host_staged"]:
+            failures.append(f"rank {r}: a CUDA tensor's hop over gloo was not host-staged")
+        for name, launched in o["launches"].items():
+            result["launches"][f"{name}_w2_rank{r}"] = launched
+    flash = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for name, kernels in (("dp_predict", ("gather_normalize", "scatter_add_map")),
+                          ("spatial", ("gather_normalize", "scatter_add_map")),
+                          ("fcn_spatial", ("gather_quantize_int8", "conv_int8")),
+                          ("dp_vit2p8_bf16", flash),
+                          ("dp_fused_epoch_presampled", ("gather_multi_u8",)),
+                          ("dp_fused_epoch_per_step", ("gather_multi_u8",)),
+                          ("tp_vit2p8", flash), ("pp_vit2p8_gn", flash)):
+        for kernel in kernels:
+            if any(o["launches"][name].get(kernel, 0) == 0 for o in ranks):
+                failures.append(f"a rank's {name} at world 2 launched no {kernel}")
+    result["world2"] = [{k: v for k, v in o.items() if k != "launches"} for o in ranks]
+    result["world1_losses"] = w1
+    print(f"phase 22, world {PAR_WORLD} (gloo, the ranks sharing the card; CUDA tensors' hops "
+          f"host-staged: {[o['host_staged'] for o in ranks]}): "
+          + json.dumps(result["world2"]))
+    if failures:
+        raise AssertionError("phase 22: " + "; ".join(failures))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3201,9 +3698,19 @@ def main() -> int:
             k["launches"] += run_launches.get(k["name"], 0)
             k["launches_by_path"][path] = run_launches.get(k["name"], 0)
     print(f"serving daemon (phase 21, {time.perf_counter() - t21:.1f} s): " + json.dumps(daemon))
+
+    # 22. the parallel paths: the mesh routes at world 1 over NCCL, then 2
+    # ranks over gloo sharing the card
+    t22 = time.perf_counter()
+    par = parallel_phase(Path(root), pairs, device)
+    for path, run_launches in par.pop("launches").items():
+        for k in kernels:
+            k["launches"] += run_launches.get(k["name"], 0)
+            k["launches_by_path"][path] = run_launches.get(k["name"], 0)
+    print(f"parallel paths (phase 22, {time.perf_counter() - t22:.1f} s): " + json.dumps(par))
     data_dir.cleanup()
 
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

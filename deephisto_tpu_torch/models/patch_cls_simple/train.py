@@ -4,10 +4,25 @@ functions (``make_fused_epoch``, ``make_fused_eval``, ``make_steps``) and the
 program around them (``train(cfg)``, ``main``: test-set extraction, epochs
 with validation and test evaluation, the best-model and resume checkpoints
 in the JAX package's flax msgpack format, ``metrics.csv`` and the plots).
-Single device: the JAX package's ``mesh=`` (data parallel) is not ported.
 
 Run it as ``python -m deephisto_tpu_torch.models.patch_cls_simple.train
-[--extract_test] [--resume] [--config X.yaml]``.
+[--extract_test] [--resume] [--config X.yaml]``, or data parallel as
+``torchrun --nproc_per_node=N -m deephisto_tpu_torch.models.patch_cls_simple.train
+...`` (one card a rank, over NCCL; ranks that share a card join a gloo
+group themselves, ``parallel.initialize(backend="gloo")``, and call
+:func:`train`).
+
+Data parallelism (``mesh=``, ``parallel/__init__.py``): every rank draws
+the same global batch from the same seeded generators and takes its rows,
+so the trajectory is single-device training's, as the JAX package shards
+one global batch. BatchNorm takes the global batch's statistics
+(``models/resnet.py:BatchNorm``); after the backward one all-reduce over
+the ``data`` group averages the gradients (an explicit reduce, not
+``DistributedDataParallel``: the state keeps the model itself, so the
+checkpoints and predicts take it as they are, and the same reduce serves a
+tensor-parallel ViT, whose MLP shards differ across the ``model`` axis);
+the losses and correct counts are reduced over the ranks. Rank 0 alone
+writes files and prints.
 
 The JAX epoch is one ``lax.scan`` program; here it is a Python loop that
 queues every step on the device and keeps each step's loss and correct
@@ -40,6 +55,7 @@ trainer.
 from __future__ import annotations
 
 import argparse
+import os
 import shutil
 import time
 from pathlib import Path
@@ -61,6 +77,7 @@ from ...train import (
 from ...train.metrics import cross_entropy_loss
 from ...train.state import TrainState
 from ...utils import get_img_ano_paths, resolve_dataset
+from ..resnet import sync_batchnorm
 from . import utils
 from .model import get_model, init_model
 
@@ -131,11 +148,55 @@ def _device_of(state: TrainState, source) -> torch.device:
     return next(state.model.parameters()).device
 
 
+class _DataParallel:
+    """What the steps need of a mesh: this rank's rows of a global batch,
+    the BatchNorm statistics over the ``data`` group, the gradient and
+    metric reductions. Without a mesh every operation is the identity."""
+
+    def __init__(self, mesh):
+        from ...parallel.mesh import batch_sharding
+
+        self.shard = batch_sharding(mesh) if mesh is not None else None
+
+    def rows(self, n: int) -> slice:
+        return self.shard.rows(n) if self.shard else slice(0, n)
+
+    def prepare(self, net) -> None:
+        """BatchNorm's statistics over the data group (without a mesh, each
+        call's own batch, whatever an earlier mesh set). Called once, when
+        the steps are made: the last steps made for a model set its group."""
+        sync_batchnorm(net, self.shard.group if self.shard else None)
+
+    def sync_gradients(self, net) -> None:
+        """Average the gradients over the data group."""
+        if self.shard:
+            from ...parallel._comm import average_gradients
+
+            average_gradients(net.parameters(), self.shard.group)
+
+    def mean_sum(self, losses, corrects):
+        """The data group's mean of ``losses`` and sum of ``corrects``."""
+        if not self.shard:
+            return losses, corrects
+        from ...parallel._comm import all_reduce_
+
+        return (all_reduce_(losses.clone(), self.shard.group) / self.shard.count,
+                all_reduce_(corrects.clone(), self.shard.group))
+
+    def gather(self, x):
+        if not self.shard:
+            return x
+        from ...parallel._comm import gather_rows
+
+        return gather_rows(x, self.shard.group)
+
+
 def make_fused_epoch(
     model,
     sample_source,
     batch_size,
     n_steps,
+    mesh=None,
     augment=True,
     crop_pad=0,
     label_smoothing=0.0,
@@ -160,7 +221,12 @@ def make_fused_epoch(
     per step. ``model`` is the model the state holds; a
     ``ContextWindowModel`` (``model.context`` > 0) gets context windows from
     the sampler, and cannot be combined with ``crop_pad`` (both repurpose the
-    context gather)."""
+    context gather).
+
+    ``mesh``: data parallel (module docstring), every rank calling
+    ``epoch_fn`` with the same state and generator; each rank gathers and
+    trains on its rows of every global batch (the crop offsets drawn for the
+    global batch), and returns the global losses and correct counts."""
     if crop_pad < 0:
         raise ValueError("crop_pad must be non-negative")
     model_ctx = getattr(model, "context", 0)
@@ -176,18 +242,24 @@ def make_fused_epoch(
     else:
         sample_fn = sample_source
 
+    dp = _DataParallel(mesh)
+    dp.prepare(model)
+    rows = dp.rows(batch_size)
+
     def train_core(state, patches, labels, gen_aug):
         """augment (u8: flips commute with the /255 cast exactly) + cast +
-        fwd/bwd + update. Shared by the per-step and presampled paths."""
+        fwd/bwd + update. Shared by the per-step and presampled paths.
+        ``patches`` and ``labels`` are this rank's rows."""
         dev = patches.device
         if crop_pad:
             b = patches.shape[0]
             size = patches.shape[1] - 2 * crop_pad
-            offs = torch.randint(0, 2 * crop_pad + 1, (b, 2), generator=gen_aug, device=dev)
+            offs = torch.randint(0, 2 * crop_pad + 1, (batch_size, 2), generator=gen_aug,
+                                 device=dev)[rows]
             r = torch.arange(size, device=dev)
-            rows = (offs[:, 0, None] + r)[:, :, None]
-            cols = (offs[:, 1, None] + r)[:, None, :]
-            patches = patches[torch.arange(b, device=dev)[:, None, None], rows, cols]
+            ys = (offs[:, 0, None] + r)[:, :, None]
+            xs = (offs[:, 1, None] + r)[:, None, :]
+            patches = patches[torch.arange(b, device=dev)[:, None, None], ys, xs]
         if augment:
             flip_h = torch.rand((), generator=gen_aug, device=dev) < 0.5
             flip_v = torch.rand((), generator=gen_aug, device=dev) < 0.5
@@ -200,6 +272,7 @@ def make_fused_epoch(
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dp.sync_gradients(net)
         state.optimizer.step()
         state.step += 1
         correct = (logits.detach().argmax(dim=-1) == labels).sum()
@@ -219,10 +292,13 @@ def make_fused_epoch(
             labels, coords, img_idx = (torch.cat(x) for x in zip(*parts))
         for s in range(n_steps):
             if presample:
-                patches, lab = gather_fn(img_idx[s], coords[s]), labels[s]
+                patches = gather_fn(img_idx[s][rows], coords[s][rows])
+                lab = labels[s][rows]
             else:
                 patches, lab, _, _ = sample_fn(gens[s][0])
+                patches, lab = patches[rows], lab[rows]
             losses[s], corrects[s] = train_core(state, patches, lab, gens[s][1])
+        losses, corrects = dp.mean_sum(losses, corrects)
         return state, losses.cpu(), corrects.cpu()
 
     return epoch
@@ -253,27 +329,40 @@ def make_fused_eval(model, sample_source, batch_size, n_steps):
     return evaluate
 
 
-def make_steps(model):
+def make_steps(model, mesh=None):
     """The train and eval steps on float batches: ``train_step(state, images,
     labels) -> (state, loss, correct)`` and ``eval_step(state, images,
-    labels) -> (loss, correct, logits)``, all on the device."""
+    labels) -> (loss, correct, logits)``, all on the device.
+
+    ``mesh``: every rank is handed the same global batch and takes its rows
+    of the ``data`` axis; BatchNorm takes the global batch's statistics, the
+    gradients are averaged over the ``data`` group, and the loss, the count
+    and (eval) the logits are the global batch's on every rank. A
+    tensor-parallel ViT (``parallel.place_vit_tensor_parallel``) trains on
+    the same steps with a mesh that has a ``model`` axis."""
+    dp = _DataParallel(mesh)
+    dp.prepare(model)
 
     def train_step(state, images, labels):
+        rows = dp.rows(images.shape[0])
+        images, labels = images[rows], labels[rows]
         net = state.model
         net.train()
         logits = net(images)
         loss = cross_entropy_loss(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dp.sync_gradients(net)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach(), (logits.detach().argmax(dim=-1) == labels).sum()
+        loss, correct = dp.mean_sum(loss.detach(), (logits.detach().argmax(dim=-1) == labels).sum())
+        return state, loss, correct
 
     @torch.no_grad()
     def eval_step(state, images, labels):
         net = state.model
         net.eval()
-        logits = net(images)
+        logits = dp.gather(net(images[dp.rows(images.shape[0])]))
         return cross_entropy_loss(logits, labels), (logits.argmax(dim=-1) == labels).sum(), logits
 
     return train_step, eval_step
@@ -323,16 +412,30 @@ def _test_pass(state, eval_step, images, labels, batch_size):
     return test_loss / max(n, 1), correct / max(n, 1)
 
 
-def train(cfg, resume: bool = False, device=None):
+def train(cfg, resume: bool = False, mesh=None, device=None):
     """Train per ``cfg`` (the JAX trainer's config schema) on ``device`` (the
     current CUDA device by default; ``"cpu"`` runs the plain versions).
     Writes ``best_model.msgpack``, ``metrics.csv`` and the plots to
     ``training.out_dir`` and ``last_state.msgpack`` to ``training.save_dir``
-    every epoch; ``resume`` continues from ``last_state.msgpack``. The JAX
-    trainer's ``mesh=`` (data parallel) is not ported: this trains on one
-    device. Returns the per-epoch losses and accuracies."""
+    every epoch; ``resume`` continues from ``last_state.msgpack``. Returns
+    the per-epoch losses and accuracies.
+
+    ``mesh``: data parallel over its ``data`` axis (module docstring), every
+    rank calling with the same config; under torchrun (``WORLD_SIZE`` > 1)
+    with no mesh, the trainer joins the process group (``parallel.initialize``)
+    and makes a mesh of every rank itself, as the JAX trainer does when it
+    sees more than one device. Rank 0 alone writes the files."""
+    from ...parallel import initialize, make_mesh, replicated
+
+    if mesh is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize()
+        mesh = make_mesh()
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    log = print if rank0 else _silent
     device = utils.get_device() if device is None else resolve_device(device)
-    print(f"Using device: {device}")
+    log(f"Using device: {device}")
+    if mesh is not None:
+        log(f"Data-parallel over {mesh.size()} ranks: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     save_dir = Path(cfg["training"]["save_dir"])
     save_dir.mkdir(parents=True, exist_ok=True)
@@ -365,7 +468,7 @@ def train(cfg, resume: bool = False, device=None):
     )
     n_classes = cfg["model"]["n_classes"]
     if len(train_val_dataset.classes) != n_classes:
-        print(
+        log(
             f"note: dataset has {len(train_val_dataset.classes)} classes, "
             f"config says {n_classes}; using config."
         )
@@ -377,7 +480,7 @@ def train(cfg, resume: bool = False, device=None):
         test_images, test_labels, _ = utils.load_image_folder(test_dir)
         test_data = (test_images, test_labels)
     else:
-        print(f"test dir {test_dir} missing — run with --extract_test first; "
+        log(f"test dir {test_dir} missing — run with --extract_test first; "
               "skipping test evaluation.")
 
     # multi-magnification configuration: patches from several pyramid layers
@@ -392,7 +495,7 @@ def train(cfg, resume: bool = False, device=None):
         )
         in_channels = 3 * len(mm_layers)
         if test_data is not None:
-            print("note: test-set evaluation is single-magnification only; "
+            log("note: test-set evaluation is single-magnification only; "
                   "skipping it for the multi-mag configuration.")
             test_data = None
 
@@ -426,7 +529,7 @@ def train(cfg, resume: bool = False, device=None):
         train_model = ContextWindowModel(
             model, patch_size=cfg["dataset"]["patch_size"], context=context
         )
-        print(f"Context-consistent training: window = patch + 2*{context}")
+        log(f"Context-consistent training: window = patch + 2*{context}")
         if test_data is not None:
             # disk test patches are bare patch_size crops; edge-replicate the
             # surroundings ONCE (fcn serving's slide-border halo convention)
@@ -445,6 +548,8 @@ def train(cfg, resume: bool = False, device=None):
         cfg["training"]["lr"],
         weight_decay=cfg["training"].get("weight_decay", 0.0),
     )
+    if mesh is not None:
+        replicated(state, mesh)
 
     scheduler = make_scheduler(cfg["training"])
 
@@ -460,13 +565,13 @@ def train(cfg, resume: bool = False, device=None):
             scheduler.num_bad_epochs = extra.get("sched_bad_epochs", 0)
         if hasattr(scheduler, "epoch"):  # warmup_cosine state
             scheduler.epoch = extra.get("sched_epoch", start_epoch)
-        print(f"Resumed from epoch {start_epoch} (best val acc {best_val_acc:.4f})")
+        log(f"Resumed from epoch {start_epoch} (best val acc {best_val_acc:.4f})")
 
     # schedules that don't start at the base LR (warmup) must be applied
     # before the first epoch, not only after scheduler.step()
     state = set_learning_rate(state, scheduler.lr)
 
-    _, eval_step = make_steps(train_model)
+    _, eval_step = make_steps(train_model, mesh)
 
     batch_size = cfg["training"]["batch_size"]
     train_steps = cfg["training"].get(
@@ -476,7 +581,7 @@ def train(cfg, resume: bool = False, device=None):
     val_steps = cfg["training"]["val_steps"]
 
     fused_epoch = make_fused_epoch(
-        train_model, sample_source, batch_size, train_steps,
+        train_model, sample_source, batch_size, train_steps, mesh=mesh,
         crop_pad=cfg["training"].get("crop_pad", 0),
         label_smoothing=cfg["training"].get("label_smoothing", 0.0),
     )
@@ -498,11 +603,11 @@ def train(cfg, resume: bool = False, device=None):
         train_accuracies.append(train_acc)
         dt = time.time() - t0
         train_pps = n_train_patches / dt
-        print(
+        log(
             f"Epoch {epoch + 1}/{cfg['training']['n_epochs']} "
             f"({train_pps:.0f} patches/s)"
         )
-        print(f"Train Loss: {train_loss:.4f}, Train Acc: {train_acc:.4f}")
+        log(f"Train Loss: {train_loss:.4f}, Train Acc: {train_acc:.4f}")
 
         # ---- val ----
         v_losses, v_corrects = fused_eval(state, gen_val)
@@ -510,28 +615,31 @@ def train(cfg, resume: bool = False, device=None):
         val_acc = int(v_corrects.sum()) / (val_steps * batch_size)
         val_losses.append(val_loss)
         val_accuracies.append(val_acc)
-        print(f"Val Loss: {val_loss:.4f}, Val Acc: {val_acc:.4f}")
+        log(f"Val Loss: {val_loss:.4f}, Val Acc: {val_acc:.4f}")
 
         new_lr = scheduler.step(val_loss)
         state = set_learning_rate(state, new_lr)
-        print(f"Current Learning Rate: {scheduler.get_last_lr()[0]:.6f}")
+        log(f"Current Learning Rate: {scheduler.get_last_lr()[0]:.6f}")
 
         if val_acc > best_val_acc:
             best_val_acc = val_acc
-            save_model(out_dir / BEST_MODEL_FILE, model)
+            if rank0:
+                save_model(out_dir / BEST_MODEL_FILE, model)
 
         # ---- test ----
         if test_data is not None:
             test_loss, test_acc = _test_pass(state, eval_step, *test_data, batch_size)
             test_losses.append(test_loss)
             test_accuracies.append(test_acc)
-            print(f"Test Loss: {test_loss:.4f}, Test Acc: {test_acc:.4f}")
+            log(f"Test Loss: {test_loss:.4f}, Test Acc: {test_acc:.4f}")
 
-        # ---- plots + metrics log + resume checkpoint ----
+        # ---- plots + metrics log + resume checkpoint (rank 0) ----
+        if not rank0:
+            continue
         plotted = save_plot(train_losses, val_losses, test_losses, "Loss", "loss.jpg", out_dir)
         save_plot(train_accuracies, val_accuracies, test_accuracies, "Acc", "acc.jpg", out_dir)
         if not plotted and epoch == start_epoch:
-            print("matplotlib is not installed: loss.jpg and acc.jpg are skipped "
+            log("matplotlib is not installed: loss.jpg and acc.jpg are skipped "
                   "(metrics.csv holds the same numbers)")
         t_loss = test_losses[-1] if test_losses else ""
         t_acc = test_accuracies[-1] if test_accuracies else ""
@@ -566,6 +674,10 @@ def train(cfg, resume: bool = False, device=None):
     }
 
 
+def _silent(*args, **kwargs) -> None:
+    """``print`` on every rank but rank 0."""
+
+
 def main(argv=None):
     # prefer a cwd-level config (the reference loads
     # ./models/patch_cls_simple/config.yaml relative to the repo root);
@@ -581,8 +693,14 @@ def main(argv=None):
 
     cfg = utils.load_config(args.config)
 
+    from ...parallel import initialize
+
+    multi = int(os.environ.get("WORLD_SIZE", "1")) > 1 and initialize()
     if args.extract_test:
-        prepare_test_patches(cfg)
+        if not multi or torch.distributed.get_rank() == 0:
+            prepare_test_patches(cfg)
+        if multi:
+            torch.distributed.barrier()
 
     return train(cfg, resume=args.resume)
 

@@ -93,26 +93,66 @@ class BatchNorm(nn.BatchNorm2d):
     running ones as flax does (flax/linen/normalization.py): mean and
     ``var = max(0, E[x²] - E[x]²)`` in float32, then ``ra = 0.9·ra + 0.1·stat``
     for both. torch's own BatchNorm feeds the running variance the unbiased
-    batch variance instead."""
+    batch variance instead.
+
+    Under data parallelism (``sync_group`` set by :func:`sync_batchnorm`, a
+    group of more than one rank) train mode takes the statistics of the
+    global batch, as GSPMD does over a sharded batch: Σx, Σx² and the count
+    are summed over the group by an all-reduce whose backward sums the
+    gradient (``parallel/_comm.py``), then ``(x - mean)·rsqrt(var + eps)·γ
+    + β`` in float32 with flax's variance, cast to the input's dtype. Every
+    rank then holds the same running statistics. Eval mode does not sync."""
 
     MOMENTUM = 0.9  # flax's: the weight of the old running value
+    sync_group = None
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=1.0 - self.MOMENTUM)
 
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
+    def _update_running(self, mean, var) -> None:
         with torch.no_grad():
-            xf = x.float()
-            dims = (0, 2, 3)
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean * (1.0 - m))
             self.running_var.mul_(m).add_(var * (1.0 - m))
             self.num_batches_tracked.add_(1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = (0, 2, 3)
+        if self.sync_group is not None:
+            from ..parallel._comm import all_reduce_sum
+
+            xf = x.float()
+            n = torch.full((1,), xf.numel() // xf.shape[1], dtype=torch.float32, device=x.device)
+            sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), n]),
+                                  self.sync_group)
+            c = xf.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+            self._update_running(mean.detach(), var.detach())
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+            return y.to(x.dtype)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean(dims)
+            self._update_running(mean, ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0))
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Set the group over which ``model``'s :class:`BatchNorm` layers take
+    train-mode statistics (None, or a group of one rank: each rank its
+    own batch). Returns ``model``."""
+    from ..parallel._comm import group_size
+
+    if group is not None and group_size(group) == 1:
+        group = None
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
+    return model
 
 
 class BasicBlock(nn.Module):

@@ -190,11 +190,10 @@ class ViT(nn.Module):
             if isinstance(m, nn.Conv2d):
                 m.to(memory_format=torch.channels_last)
 
-    def forward(self, x, tokens: bool = False):
-        """x: (B, H, W, C) images, or with ``tokens=True`` stem features
-        (B, gh, gw, dim) that enter at the transformer (the JAX model's
-        serving entry for a stem run outside it). Returns (B, num_classes)
-        float32 logits."""
+    def embed_tokens(self, x, tokens: bool = False):
+        """The (B, N, dim) token sequence the blocks take, ``pos_embed``
+        added: the stem and ``embed`` of (B, H, W, C) images, or with
+        ``tokens=True`` of stem features (B, gh, gw, dim)."""
         x = x.to(self.dtype)
         if not tokens:
             x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC (channels_last) memory
@@ -205,11 +204,21 @@ class ViT(nn.Module):
                     x = F.relu(getattr(self, f"{norm}{i}")(x))
             x = self.embed(x).permute(0, 2, 3, 1)
         b, gh, gw, d = x.shape
-        x = x.reshape(b, gh * gw, d) + cast_param(self, "pos_embed", self.dtype)
+        return x.reshape(b, gh * gw, d) + cast_param(self, "pos_embed", self.dtype)
+
+    def classify(self, x):
+        """The final LayerNorm, the token mean and the f32 head."""
+        return self.head(self.ln(x).mean(dim=1).float())
+
+    def forward(self, x, tokens: bool = False):
+        """x: (B, H, W, C) images, or with ``tokens=True`` stem features
+        (B, gh, gw, dim) that enter at the transformer (the JAX model's
+        serving entry for a stem run outside it). Returns (B, num_classes)
+        float32 logits."""
+        x = self.embed_tokens(x, tokens)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x)
-        x = self.ln(x).mean(dim=1)
-        return self.head(x.float())
+        return self.classify(x)
 
 
 ViTSmall = partial(ViT, dim=384, depth=6, heads=6)

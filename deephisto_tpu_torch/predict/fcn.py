@@ -182,6 +182,70 @@ def tile_logits(model, xin, hh: int, ft: int, fc_kernel, pre_packed=False):
     return f.float() @ fc_kernel
 
 
+def fcn_logit_map(model, padded: torch.Tensor, pre_packed, ty: int, tx: int, tile: int,
+                  halo: int, tile_batch: int, pre_tiled: bool = False) -> torch.Tensor:
+    """The fc-projected stride-32 logit map (ty·ft, tx·ft, n_classes), ft =
+    tile/32, of a slide on the (tile, halo) grid: ``padded`` the slide
+    edge-padded by ``halo`` around ty × tx tiles (packed in ``pre_packed``'s
+    units), or with ``pre_tiled`` its (ty·tx, T', T', C) tile stack. Steps of
+    ``tile_batch`` tiles, the last one's excess lanes repeating the last
+    tile (dropped here). The model is put in eval mode."""
+    fs = FEATURE_STRIDE
+    device = padded.device
+    ft = tile // fs  # feature rows per tile
+    hh = halo // fs
+    n_tiles = ty * tx
+    tb = max(1, min(tile_batch, n_tiles))
+    n_steps = -(-n_tiles // tb)
+    idx = np.minimum(np.arange(n_steps * tb), n_tiles - 1)
+    pk = {False: 1, True: 4, "s2d8": 8}[pre_packed]
+    tp, tc = (tile + 2 * halo) // pk, tile // pk
+
+    lut = getattr(model, "input_lut", None)
+    if lut is not None:
+        # the int8 ResNet: K1's int8 mode gathers each step's tiles from the
+        # tile stack (or the one padded slide), quantizes them and writes
+        # them in the 4x4 form the s2d stem takes (or as they are for the
+        # imagenet stem): the model quantizes and repacks nothing
+        layout, model_packed = model.input_layout(pre_packed)
+        bank = (padded if pre_tiled else padded[None]).contiguous()
+        if pre_tiled:
+            sidx, origin = idx, np.zeros((len(idx), 2), np.int64)
+        else:
+            sidx, origin = np.zeros_like(idx), np.stack([idx // tx, idx % tx], 1) * tc
+        sidx = torch.from_numpy(sidx.astype(np.int32)).to(device)
+        origin = torch.from_numpy(origin.astype(np.int32)).to(device)
+
+        def gather_tiles(s):
+            lanes = slice(s * tb, (s + 1) * tb)
+            return gather_quantize_int8(bank, sidx[lanes], origin[lanes], tp, lut, layout)
+    else:
+        model_packed = pre_packed
+
+        def gather_tiles(s):
+            idxs = idx[s * tb : (s + 1) * tb]
+            if pre_tiled:
+                return padded[torch.from_numpy(idxs).to(device)]
+            return torch.stack([
+                padded[(t // tx) * tc : (t // tx) * tc + tp, (t % tx) * tc : (t % tx) * tc + tp]
+                for t in idxs.tolist()
+            ])
+
+    model.eval()
+    with torch.inference_mode():
+        fc_kernel = _fc(model)[0]
+        steps = [
+            tile_logits(model, gather_tiles(s), hh, ft, fc_kernel, pre_packed=model_packed)
+            for s in range(n_steps)
+        ]
+        tiles_l = torch.cat(steps)
+        nc = tiles_l.shape[-1]
+        return (
+            tiles_l[:n_tiles].reshape(ty, tx, ft, ft, nc).permute(0, 2, 1, 3, 4)
+            .reshape(ty * ft, tx * ft, nc)
+        )
+
+
 def predict_full_fcn(
     image,
     model,
@@ -252,18 +316,9 @@ def predict_full_fcn(
     wf = patch_size // fs  # feature cells per window axis (224/32 = 7)
     up = fs // downscale  # map cells per feature cell (32/16 = 2)
     ty, tx, pad_y, pad_x = _grid(h, w, tile, halo)
-    ft = tile // fs  # feature rows per tile
-    fh, fw = ty * ft, tx * ft
     ky = (h - patch_size) // fs + 1  # valid 32-aligned window corners per axis
     kx = (w - patch_size) // fs + 1
     mh, mw = h // downscale, w // downscale
-    hh = halo // fs
-    n_tiles = ty * tx
-    tb = max(1, min(tile_batch, n_tiles))
-    n_steps = -(-n_tiles // tb)
-    # per-step tile batches; excess lanes recompute the last tile and are
-    # dropped before the assembly below
-    idx = np.minimum(np.arange(n_steps * tb), n_tiles - 1)
 
     pre_tiled = False
     if staged:
@@ -272,54 +327,10 @@ def predict_full_fcn(
     else:
         # edge-replicated, not zero: the halo ring feeds real convolutions
         padded = edge_pad(image, pad_y, pad_x)
-    padded = padded.to(device)
-    pk = {False: 1, True: 4, "s2d8": 8}[pre_packed]
-    tp, tc = (tile + 2 * halo) // pk, tile // pk
-
-    lut = getattr(model, "input_lut", None)
-    if lut is not None:
-        # the int8 ResNet: K1's int8 mode gathers each step's tiles from the
-        # tile stack (or the one padded slide), quantizes them and writes
-        # them in the 4x4 form the s2d stem takes (or as they are for the
-        # imagenet stem): the model quantizes and repacks nothing
-        layout, model_packed = model.input_layout(pre_packed)
-        bank = (padded if pre_tiled else padded[None]).contiguous()
-        if pre_tiled:
-            sidx, origin = idx, np.zeros((len(idx), 2), np.int64)
-        else:
-            sidx, origin = np.zeros_like(idx), np.stack([idx // tx, idx % tx], 1) * tc
-        sidx = torch.from_numpy(sidx.astype(np.int32)).to(device)
-        origin = torch.from_numpy(origin.astype(np.int32)).to(device)
-
-        def gather_tiles(s):
-            lanes = slice(s * tb, (s + 1) * tb)
-            return gather_quantize_int8(bank, sidx[lanes], origin[lanes], tp, lut, layout)
-    else:
-        model_packed = pre_packed
-
-        def gather_tiles(s):
-            idxs = idx[s * tb : (s + 1) * tb]
-            if pre_tiled:
-                return padded[torch.from_numpy(idxs).to(device)]
-            return torch.stack([
-                padded[(t // tx) * tc : (t // tx) * tc + tp, (t % tx) * tc : (t % tx) * tc + tp]
-                for t in idxs.tolist()
-            ])
-
-    model.eval()
+    logit_map = fcn_logit_map(model, padded.to(device), pre_packed, ty, tx, tile, halo,
+                              tile_batch, pre_tiled=pre_tiled)
     with torch.inference_mode():
-        fc_kernel, fc_bias = _fc(model)
-        steps = [
-            tile_logits(model, gather_tiles(s), hh, ft, fc_kernel, pre_packed=model_packed)
-            for s in range(n_steps)
-        ]
-        tiles_l = torch.cat(steps)
-        nc = tiles_l.shape[-1]
-        logit_map = (
-            tiles_l[:n_tiles].reshape(ty, tx, ft, ft, nc).permute(0, 2, 1, 3, 4)
-            .reshape(fh, fw, nc)
-        )
-        wlog = _avg_pool_f32(logit_map, wf)[:ky, :kx] + fc_bias
+        wlog = _avg_pool_f32(logit_map, wf)[:ky, :kx] + _fc(model)[1]
         argmax_map, score = _window_ensemble(wlog, wf, up, ky, kx, mh, mw)
         argmax_map = argmax_map.cpu().numpy()
     return argmax_map, score

@@ -202,6 +202,7 @@ def predict_full_fused(
     downscale: int = 16,
     softmax: bool = False,
     device=None,
+    mesh=None,
 ):
     """Dense full-WSI prediction; returns (argmax_map, score_map).
 
@@ -218,6 +219,15 @@ def predict_full_fused(
     coords are padded to whole batches by repeating the last one, and only
     the real patches of the last batch are stitched, so every tile counts
     exactly once (as the zero-weighted lanes at pipeline.py:168).
+
+    mesh: a ``parallel.make_mesh`` mesh, every rank calling with the same
+    arguments: rank r of the ``data`` axis takes its lanes of every batch
+    (``batch_size`` must divide over the axis) and runs K1, the model and K2
+    into its own map, its padded lanes unstitched; one all-reduce sums the
+    maps before the argmax, so every rank returns the same maps. At one rank
+    they are the single predict's bit for bit; over more ranks a cell's
+    patches are summed in another order (pipeline.py:133-147 shards each
+    batch's coordinates over ``data`` the same way).
     """
     device = resolve_device(device)
     image, packed, h, w = _checked_inputs(image, model, n_classes, device)
@@ -239,12 +249,25 @@ def predict_full_fused(
     if device.type == "cuda":
         coords = coords.pin_memory()  # lets every batch's upload run ahead
 
+    lanes = slice(0, bs)
+    if mesh is not None:
+        from ..parallel.mesh import batch_sharding
+
+        shard = batch_sharding(mesh)
+        lanes = shard.rows(bs)
+
     step = BatchPredictor(image, packed, model, ps, d, bs, device, softmax)
     score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
     with torch.inference_mode():
         for b in range(n_b):
-            cb = coords[b * bs : (b + 1) * bs]
-            step(score_map, cb, min(bs, n - b * bs))
+            real = min(bs, n - b * bs) - lanes.start  # this rank's real lanes
+            if real > 0:
+                cb = coords[b * bs + lanes.start : b * bs + lanes.stop]
+                step(score_map, cb, min(real, len(cb)))
+        if mesh is not None:
+            from ..parallel._comm import all_reduce_
+
+            all_reduce_(score_map, shard.group)
         argmax_map = score_map.argmax(dim=-1).to(torch.uint8).cpu().numpy()
     return argmax_map, score_map
 
