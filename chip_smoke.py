@@ -4,7 +4,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It imports nothing
 of JAX or of the JAX package. Phases, any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-2. build: every kernel under ``deephisto_tpu_torch/csrc`` with ``nvcc``;
+2. build: every kernel under ``deephisto_tpu_torch/csrc`` with ``nvcc``,
+   and the native host library (``deephisto_tpu_torch/native``) with
+   ``g++``, before any timed phase whose host gathers take it;
 3. kernels vs their plain PyTorch versions on the card at the main path's
    shapes: K1 (gather + /255) bit-equal in f32 and bf16; K1's int8 mode
    (the int8 model's input quantize and stem layout fused into the gather)
@@ -199,7 +201,36 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     against the single step in f32 (the loss within 1e-5 relative, every
     gradient within 1e-4); the CUDA tensors' hops host-staged under gloo
     (the explicit branch ``parallel/_comm.py:host_staged``), and each
-    path's launches by rank. A failure in any rank fails the phase.
+    path's launches by rank. A failure in any rank fails the phase;
+23. the long tail: phase 4's ResNet-18 and phase 7's vit2p8 (bf16) and
+    phase 11's int8 ResNet-18 (s2d) through ``export_classifier`` at batch
+    256 × 224² on the card, each loaded from its bytes and fed one
+    K1-gathered batch of the 16384² slide: the int8 program bit-equal to
+    the live model, the bf16 ones at phases 5 and 8's argmax limits, K3
+    launched 6 times a batch by the loaded ViT and K6 20 times by the
+    loaded int8 program (the registered ops), each as often as the live
+    model launches it; loaded and live patches/s (best of 3, in turns) and
+    the artifact's bytes. ``train/dist_ckpt.py`` at world 1: a vit2p8 bf16
+    train state after 3 steps at batch 256 saved async, 2 more steps during
+    the write (the seconds the save blocks and the write's), a fresh state
+    restored from it taking the same 2 steps bit for bit (losses and every
+    parameter; cuDNN deterministic), three saves with ``max_to_keep=2``
+    leaving the last two; ``ServingEngine.from_checkpoint`` over a
+    checkpoint directory of the s2d ResNet-18 serving the 8192² crop's fcn
+    and dense maps bit-equal to the same weights' msgpack; 2 ranks over gloo
+    on the card (``ckpt_rank``): a tensor-parallel (model=2) f32 vit2p8
+    state whose replicas (parameters, BatchNorm statistics, moments) are
+    bit-equal on both ranks after its step, cuDNN in its default mode; it
+    and a 2-stage pipeline f32 vit2p8 state restored at world 1 bit-equal to their
+    canonical gathers, a data-parallel save restored bit-equal and holding
+    each replica once (its bytes within 5 % of a world-1 save); a
+    ``profiling.trace`` of one vit2p8 predict of the 2048² crop that names
+    the ``annotate`` region and K3's kernel, ``StageTimer`` with ``sync=``
+    at least the CUDA events' time of the same call; the native library
+    built on this machine, its clip areas within 1e-9 of the box's area of
+    numpy's over the synthetic dataset's regions and 4,096 seeded boxes, its
+    patch extraction equal to numpy slicing with clamped corners, each
+    timed beside numpy.
 
 Phase 3 also holds K3 (flash attention) against its plain version in bf16
 and f32 at the ViT's shape (256, 6, 784, 64), a ragged N = 1000, N = 196
@@ -3306,6 +3337,448 @@ def parallel_phase(root: Path, pairs: list, device) -> dict:
     return result
 
 
+# -- phase 23: the long tail ---------------------------------------------------
+
+LT_TIMED_RUNS = 3  # the exported and the live programs, best of 3 in turns
+LT_AGREE = {"resnet18_bf16": 0.999, "vit2p8_bf16": 0.99}  # phases 5 and 8's argmax limits
+LT_RANK_BATCH = 32  # the one step of each 2-rank state (PP: 8 microbatches of 4)
+LT_NATIVE_BOXES = 4096
+LT_NATIVE_REL = 1e-9  # native vs numpy clip areas, of the box's area (PS²)
+LT_EXTRACT_N = 1024  # patches of the native extraction check
+LT_EXTRACT_SIDE = 8192  # its host layer: the 8192² crop
+
+
+NATIVE_BUILD: dict = {}  # the native library's build in the set-up (phase 2)
+
+
+def build_native() -> dict:
+    """Build (or load) the native host library once per process, before any
+    timed phase uses it (the host gathers of phases 14-23 dispatch to it).
+    Returns ``{"s": seconds, "compiled": whether g++ ran}``; fails where it
+    does not build."""
+    from deephisto_tpu_torch import native
+
+    if not NATIVE_BUILD:
+        compiled = not native.library_path().exists()
+        t0 = time.perf_counter()
+        if not native.available():
+            raise AssertionError(f"the native library did not build: {native.build_log}")
+        NATIVE_BUILD.update(s=time.perf_counter() - t0, compiled=compiled)
+    return NATIVE_BUILD
+
+
+def export_check(label, model, dtype, u8, kernel=None, per_batch=0) -> tuple[dict, dict]:
+    """``export_classifier`` of ``model`` at batch BS × PS² on the card, the
+    program loaded from its bytes and held to the live model on the batch
+    ``u8``: bit-equal (``label`` not in ``LT_AGREE``) or the argmax limit,
+    ``kernel`` launched ``per_batch`` times a batch by both; with no
+    ``kernel``, the program's graph holds no registered op of the port.
+    Both timed, best of LT_TIMED_RUNS in turns. Returns (row, the loaded
+    program's launches on the batch)."""
+    import io
+
+    from deephisto_tpu_torch import _build
+    from deephisto_tpu_torch.export import Classifier, export_classifier, load_classifier
+
+    live = Classifier(model, dtype).eval()
+    t0 = time.perf_counter()
+    data = export_classifier(model, BS, PS, dtype=dtype)
+    export_s = time.perf_counter() - t0
+    ops = sorted({str(n.target) for n in torch.export.load(io.BytesIO(data)).graph.nodes
+                  if "deephisto" in str(n.target)})
+    t0 = time.perf_counter()
+    loaded = load_classifier(data)
+    load_s = time.perf_counter() - t0
+
+    def run(fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with torch.no_grad():
+            out = fn(u8)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _build.launches.items() if v}
+
+    got, got_launches = run(loaded)
+    want, want_launches = run(live)
+    best = {"loaded": float("inf"), "live": float("inf")}
+    for which in ("loaded", "live") * LT_TIMED_RUNS:
+        fn = loaded if which == "loaded" else live
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn(u8)
+        torch.cuda.synchronize()
+        best[which] = min(best[which], time.perf_counter() - t0)
+    agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+    diff = float((got.float() - want.float()).abs().max())
+    row = {"artifact_bytes": len(data), "export_s": export_s, "load_s": load_s,
+           "loaded_patches_per_s": BS / best["loaded"], "live_patches_per_s": BS / best["live"],
+           "argmax_agree": agree, "max_score_diff": diff, "bit_equal": bool(torch.equal(got, want)),
+           "graph_ops": ops}
+    if kernel:
+        row["kernel_launches"] = {"loaded": got_launches.get(kernel, 0),
+                                  "live": want_launches.get(kernel, 0)}
+    print(f"phase 23 export {label}: {len(data)} bytes, exported in {export_s:.2f} s, loaded in "
+          f"{load_s:.2f} s; loaded {row['loaded_patches_per_s']:.1f} vs live "
+          f"{row['live_patches_per_s']:.1f} patches/s (best of {LT_TIMED_RUNS}, in turns); "
+          f"argmax agreement {agree}, max |score diff| {diff}, bit-equal {row['bit_equal']}; "
+          f"the port's ops in the graph {ops}"
+          + (f"; {kernel} launches a batch {row['kernel_launches']}" if kernel else ""))
+    if label in LT_AGREE:
+        if agree < LT_AGREE[label]:
+            raise AssertionError(f"the exported {label} agrees with the live model on {agree}")
+    elif not row["bit_equal"]:
+        raise AssertionError(f"the exported {label} is not the live model bit for bit")
+    if kernel is None:
+        if ops:
+            raise AssertionError(f"{label}: the exported graph holds the port's ops {ops}")
+    elif not got_launches.get(kernel, 0) == want_launches.get(kernel, 0) == per_batch:
+        raise AssertionError(f"{label}: {kernel} launched {row['kernel_launches']} a batch, not "
+                             f"{per_batch} by each")
+    return row, got_launches
+
+
+def dcp_dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in Path(path).iterdir() if p.is_file())
+
+
+def ckpt_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One rank of phase 23's world over gloo on the shared card: a
+    tensor-parallel (model=2) f32 vit2p8, a 2-stage pipeline f32 vit2p8
+    (GroupNorm stem) and a data-parallel f32 vit2p8 state, each after one
+    step, saved by ``dist_ckpt``; rank 0 writes the canonical tensors the
+    parent holds the restores to."""
+    from deephisto_tpu_torch._device import resolve_device
+    from deephisto_tpu_torch.models.patch_cls_simple import make_steps
+    from deephisto_tpu_torch.parallel import (
+        create_pipeline_state,
+        initialize,
+        make_mesh,
+        make_pipeline_steps,
+        make_pp_mesh,
+        pipeline_params_to_canonical,
+        place_vit_tensor_parallel,
+    )
+    from deephisto_tpu_torch.parallel.tensor import replicated_parameters, vit_tp_state_dict
+    from deephisto_tpu_torch.train import create_train_state
+    from deephisto_tpu_torch.train import dist_ckpt as dc
+
+    initialize(init_method=f"file://{store}", world_size=world, rank=rank, backend="gloo")
+    device, root = resolve_device(), Path(root)
+    x, y = par_batch(device, LT_RANK_BATCH)
+    out = {}
+
+    def save(name, state):
+        mgr = dc.checkpoint_manager(root / name)
+        dc.save_train_state(mgr, 1, state, epoch=0)
+        mgr.close()
+
+    model = par_train_models(device, "vit2p8", torch.float32)
+    tp_mesh = make_mesh(model=world)
+    state = place_vit_tensor_parallel(create_train_state(model, 1e-3), tp_mesh)
+    make_steps(model, tp_mesh)[0](state, x, y)
+    # the replicas (parameters, BatchNorm statistics, moments) bit-equal on
+    # both ranks, cuDNN left in its default (non-deterministic) mode
+    rep = replicated_parameters(model)
+    rep += [*model.buffers(), *(v for p in rep for v in state.optimizer.state[p].values())]
+    flat = torch.cat([t.detach().to(device, torch.float32).reshape(-1) for t in rep])
+    both = [torch.empty_like(flat) for _ in range(world)]
+    torch.distributed.all_gather(both, flat)
+    if not all(torch.equal(both[0], t) for t in both[1:]):
+        raise AssertionError(f"the TP replicas differ across the ranks in "
+                             f"{int((both[0] != both[1]).sum())} of {flat.numel()} values")
+    save("tp", state)
+    out["tp"] = vit_tp_state_dict(model, tp_mesh)
+    del model, state
+
+    pp_mesh = make_pp_mesh(stages=world)
+    base = par_train_models(device, "vit2p8_gn", torch.float32)
+    state = create_pipeline_state(base, pp_mesh, 1e-3)
+    make_pipeline_steps(base, pp_mesh, n_microbatches=PAR_MICROBATCHES)[0](state, x, y)
+    save("pp", state)
+    out["pp"] = pipeline_params_to_canonical(state, pp_mesh)
+    del base, state
+
+    model = par_train_models(device, "vit2p8", torch.float32)
+    state = create_train_state(model, 1e-3)
+    make_steps(model, make_mesh())[0](state, x, y)
+    save("dp", state)
+    out["dp"] = model.state_dict()
+    if rank == 0:
+        torch.save({k: {n: t.cpu() for n, t in v.items()} for k, v in out.items()},
+                   root / "canonical.pt")
+    torch.distributed.destroy_process_group()
+
+
+def long_tail_phase(root: Path, pairs: list, device) -> dict:
+    """Phase 23: the exported classifiers (``export.py``), the distributed
+    checkpoints (``train/dist_ckpt.py``) at world 1 and at 2 ranks, the
+    daemon serving a checkpoint directory, the profiler (``profiling.py``)
+    and the native host library (``native``). Returns the report, with the
+    launches of each path under ``"launches"``."""
+    import torch.multiprocessing as mp
+
+    from deephisto_tpu_torch import _build, native
+    from deephisto_tpu_torch.anno import parse_annotations
+    from deephisto_tpu_torch.geometry.polygon import _clip_area_boxes_numpy
+    from deephisto_tpu_torch.models.patch_cls_simple import get_model, init_model, make_steps
+    from deephisto_tpu_torch.ops import gather_multi_u8
+    from deephisto_tpu_torch.predict import dense_coords, predict_full_fused
+    from deephisto_tpu_torch.profiling import TRACE_FILE, StageTimer, annotate, trace
+    from deephisto_tpu_torch.serve import ServingEngine
+    from deephisto_tpu_torch.train import create_train_state
+    from deephisto_tpu_torch.train import dist_ckpt as dc
+    from deephisto_tpu_torch.train.checkpoint import save_model
+
+    report, launches = {}, {}
+    root = root / "long_tail"
+    root.mkdir()
+    slide = seeded_slide(device)
+    dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
+    spread = dense[:: len(dense) // 64][:64]
+    batch = dense[:: len(dense) // BS][:BS]
+    u8 = gather_multi_u8(slide[None], torch.zeros(BS, dtype=torch.int32), batch, PS)
+
+    # exports: phase 4's ResNet-18, phase 7's vit2p8 (bf16), phase 11's int8
+    # ResNet-18 (s2d), each at batch 256 on one K1-gathered batch
+    t0 = time.perf_counter()
+    exports = {}
+    r18 = seeded_model(device, depth=18)
+    center_head(r18, r18.fc, slide, spread)
+    exports["resnet18_bf16"], _ = export_check("resnet18_bf16", r18, torch.bfloat16, u8)
+    del r18
+    vit_slide = slide[:VIT_SIDE, :VIT_SIDE].contiguous()
+    vit_dense = torch.from_numpy(dense_coords(VIT_SIDE, VIT_SIDE, PS, STRIDE))
+    vit = seeded_model(device, arch="vit", depth=VIT_DEPTH, stem="conv", patch=VIT_PATCH)
+    center_head(vit, vit.head, vit_slide, vit_dense[:: len(vit_dense) // 64][:64])
+    exports["vit2p8_bf16"], launches["export_vit2p8_batch"] = export_check(
+        "vit2p8_bf16", vit, torch.bfloat16, u8, "flash_attention", VIT_DEPTH)
+    r18s = seeded_model(device, depth=18, stem="s2d")
+    qexact, _, _ = seeded_int8(device, r18s, slide, dense)
+    exports["int8_resnet18_s2d"], launches["export_int8_resnet18_batch"] = export_check(
+        "int8_resnet18_s2d", qexact, torch.float32, u8, "conv_int8", 20)
+    del qexact
+    report["export"] = exports
+    report["export_s"] = time.perf_counter() - t0
+    print(f"phase 23 exports: {report['export_s']:.1f} s")
+
+    # the distributed checkpoint at world 1: a vit2p8 bf16 train state (the
+    # phase-14 recipe, batch 256) saved async after 3 steps, 2 more steps
+    # while the write runs; a fresh state restored from it takes the same
+    # 2 steps bit for bit; three saves kept to the last two
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the conv stem's weight gradient
+    try:
+        gen = torch.Generator(device=device).manual_seed(SEED + 23)
+        batches = [(torch.rand((BS, PS, PS, 3), generator=gen, device=device),
+                    torch.randint(0, N_CLASSES, (BS,), generator=gen, device=device))
+                   for _ in range(5)]
+
+        def fresh(seed):
+            m = init_model(get_model(N_CLASSES, arch="vit", depth=VIT_DEPTH, stem="conv",
+                                     patch=VIT_PATCH), seed=seed).to(device)
+            return create_train_state(m, 3e-4, weight_decay=0.05)
+
+        def steps(state, bs):
+            step = make_steps(state.model)[0]
+            return [float(step(state, x, y)[1]) for x, y in bs]
+
+        state = fresh(SEED)
+        steps(state, batches[:3])
+        mgr = dc.checkpoint_manager(root / "dcp_vit2p8", max_to_keep=2)
+        torch.cuda.synchronize()
+        t_save = time.perf_counter()
+        dc.save_train_state(mgr, 3, state, epoch=1, extra={"phase": 23})
+        block_s = time.perf_counter() - t_save
+        _build.reset_launches()
+        want_losses = steps(state, batches[3:])
+        mgr.wait_until_finished()
+        write_s = time.perf_counter() - t_save
+        launches["dcp_train_steps_during_write"] = {k: v for k, v in _build.launches.items() if v}
+        ckpt_bytes = dcp_dir_bytes(mgr.step_dir(3))
+        want = {n: t.clone() for n, t in state.model.state_dict().items()}
+        del state
+        resumed, epoch, extra = dc.restore_train_state(mgr, fresh(SEED + 1))
+        got_losses = steps(resumed, batches[3:])
+        same = all(torch.equal(t, want[n]) for n, t in resumed.model.state_dict().items())
+        if got_losses != want_losses or not same or (epoch, extra) != (1, {"phase": 23}):
+            raise AssertionError(f"the resumed vit2p8 run is not the uninterrupted one: losses "
+                                 f"{got_losses} vs {want_losses}, parameters equal {same}")
+        for step in (5, 6):
+            dc.save_train_state(mgr, step, resumed, epoch=2)
+        mgr.close()
+        kept = sorted(p.name for p in mgr.directory.iterdir())
+        if mgr.all_steps() != [5, 6] or kept != ["5", "6"]:
+            raise AssertionError(f"three saves with max_to_keep=2 left {kept}")
+        del resumed, batches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    report["dcp_world1"] = {"blocking_s": block_s, "write_s": write_s, "bytes": ckpt_bytes,
+                            "losses_after_save": want_losses, "resume_bit_equal": True,
+                            "kept_after_3_saves": kept, "phase_s": time.perf_counter() - t0}
+    print(f"phase 23 dist_ckpt world 1: vit2p8 bf16 state {ckpt_bytes} bytes, save blocked "
+          f"{block_s:.4f} s of a {write_s:.4f} s write (2 train steps ran meanwhile); resumed "
+          f"run bit-equal (losses {got_losses}); 3 saves kept {kept}")
+
+    # the daemon over a checkpoint directory against the same weights'
+    # msgpack: fcn and dense maps on the 8192^2 crop, bit-equal
+    t0 = time.perf_counter()
+    serve_dir = root / "serve"
+    center_head(r18s, r18s.fc, slide, spread)
+    msgpack = save_model(serve_dir / "best_model.msgpack", r18s)
+    mgr = dc.checkpoint_manager(serve_dir / "ckpt", async_save=False)
+    dc.save_train_state(mgr, 1, create_train_state(r18s, 1e-3), epoch=0)
+    cfg_path = serve_dir / "config.yaml"
+    write_yaml(cfg_path, {"model": {"n_classes": N_CLASSES, "depth": 18, "stem": "s2d"},
+                          "dataset": {"patch_size": PS}})
+    del r18s
+    crop_np = vit_slide.cpu().numpy()
+    engines = {"dir": ServingEngine.from_checkpoint(cfg_path, serve_dir / "ckpt"),
+               "msgpack": ServingEngine.from_checkpoint(cfg_path, msgpack)}
+    try:
+        for mode in ("fcn", "dense"):
+            _build.reset_launches()
+            got = engines["dir"].predict_slide(crop_np, mode=mode)[0]
+            torch.cuda.synchronize()
+            launches[f"dcp_serve_{mode}"] = {k: v for k, v in _build.launches.items() if v}
+            if not np.array_equal(got, engines["msgpack"].predict_slide(crop_np, mode=mode)[0]):
+                raise AssertionError(f"the daemon's {mode} map from the checkpoint directory "
+                                     "differs from the msgpack's")
+    finally:
+        for e in engines.values():
+            e.close()
+    report["serve_from_dir"] = {"modes": ["fcn", "dense"], "bit_equal": True,
+                                "launches": {m: launches[f"dcp_serve_{m}"]
+                                             for m in ("fcn", "dense")},
+                                "phase_s": time.perf_counter() - t0}
+    print(f"phase 23 daemon from the checkpoint directory: fcn and dense {VIT_SIDE}^2 maps "
+          f"bit-equal to the msgpack's; launches {report['serve_from_dir']['launches']}")
+
+    # 2 ranks over gloo on the one card: TP, PP and DP saves
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(ckpt_rank, args=(PAR_WORLD, str(root / "gloo_store"), str(root)),
+                             nprocs=PAR_WORLD, join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > PAR_TIMEOUT:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"phase 23's {PAR_WORLD} ranks did not finish in {PAR_TIMEOUT} s")
+    canon = torch.load(root / "canonical.pt", weights_only=False)
+    ranks_s = time.perf_counter() - t0
+
+    def restored(kind, name):
+        state = create_train_state(par_train_models(device, kind, torch.float32), 1e-3)
+        dc.restore_train_state(dc.checkpoint_manager(root / name), state)
+        return state
+
+    faults = []
+    for name, kind in (("tp", "vit2p8"), ("pp", "vit2p8_gn"), ("dp", "vit2p8")):
+        sd = restored(kind, name).model.state_dict()
+        bad = [n for n, t in sd.items() if not torch.equal(t.cpu(), canon[name][n])]
+        if bad or sd.keys() != canon[name].keys():
+            faults.append(f"{name}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    one = create_train_state(par_train_models(device, "vit2p8", torch.float32), 1e-3)
+    make_steps(one.model)[0](one, *par_batch(device, LT_RANK_BATCH))
+    mgr = dc.checkpoint_manager(root / "w1", async_save=False)
+    dc.save_train_state(mgr, 1, one, epoch=0)
+    dp_bytes, w1_bytes = dcp_dir_bytes(root / "dp" / "1"), dcp_dir_bytes(root / "w1" / "1")
+    if abs(dp_bytes - w1_bytes) > 0.05 * w1_bytes:
+        faults.append(f"the world-2 DP save holds {dp_bytes} bytes, world 1 {w1_bytes}")
+    if faults:
+        raise AssertionError("phase 23, 2 ranks: " + "; ".join(faults))
+    report["dcp_2_ranks"] = {"tp_replicas_across_ranks": "bit-equal",
+                             "tp_to_world1": "bit-equal", "pp_to_single": "bit-equal",
+                             "dp_bytes": dp_bytes, "world1_bytes": w1_bytes,
+                             "ranks_s": ranks_s, "phase_s": time.perf_counter() - t0}
+    print(f"phase 23 dist_ckpt 2 ranks (gloo, one card): the TP replicas bit-equal on both "
+          f"ranks after the step (cuDNN default); TP and PP saves restored at world 1 "
+          f"bit-equal to their canonical gathers, the DP save restored bit-equal; DP save "
+          f"{dp_bytes} bytes vs world 1 {w1_bytes}; ranks {ranks_s:.1f} s")
+    del one
+
+    # the profiler around one vit2p8 predict of the 2048^2 crop
+    t0 = time.perf_counter()
+    crop = slide[:VIT_CHECK_SIDE, :VIT_CHECK_SIDE].contiguous()
+    predict_full_fused(crop, vit, N_CLASSES)  # warm-up
+    with trace(str(root / "trace")):
+        with annotate("predict"):
+            predict_full_fused(crop, vit, N_CLASSES)
+    names = {e.get("name", "") for e in
+             json.loads((root / "trace" / TRACE_FILE).read_text())["traceEvents"]}
+    k3_names = sorted(n for n in names if "flash_fwd" in n)
+    if "predict" not in names or not k3_names:
+        raise AssertionError(f"the trace names the region: {'predict' in names}, K3's kernel: "
+                             f"{k3_names}")
+    timer, held = StageTimer(), []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.stage("predict", items=int(len(dense_coords(VIT_CHECK_SIDE, VIT_CHECK_SIDE, PS,
+                                                           STRIDE))), sync=held):
+        start.record()
+        held.append(predict_full_fused(crop, vit, N_CLASSES)[1])
+        end.record()
+    end.synchronize()
+    event_s = start.elapsed_time(end) / 1000
+    if timer.totals["predict"] < event_s:
+        raise AssertionError(f"StageTimer's {timer.totals['predict']} s < the events' {event_s} s")
+    report["profiler"] = {"trace_bytes": (root / "trace" / TRACE_FILE).stat().st_size,
+                          "k3_kernel": k3_names[0][:80], "stage_timer_s": timer.totals["predict"],
+                          "cuda_event_s": event_s, "phase_s": time.perf_counter() - t0}
+    print(f"phase 23 profiler: the trace names 'predict' and {k3_names[0][:60]!r}; StageTimer "
+          f"{timer.totals['predict']:.4f} s >= CUDA events {event_s:.4f} s; {timer.report()}")
+    del vit, crop, vit_slide
+
+    # the native host library, built on this machine in the set-up
+    built = build_native()
+    regions, _ = parse_annotations(pairs, layer=TRAIN_LAYER, verbose=False)
+    polys = [r.vertices_layer for rs in regions.values() for r in rs]
+    rng = np.random.default_rng(SEED + 23)
+    hi = max(float(p.max()) for p in polys)
+    xy = rng.uniform(-PS, hi, (LT_NATIVE_BOXES, 2))
+    boxes = np.concatenate([xy, xy + PS], axis=1)
+    clip = {"native": 0.0, "numpy": 0.0}
+    worst = 0.0
+    for p in polys:
+        t1 = time.perf_counter()
+        a = native.clip_area_boxes_native(p, boxes)
+        t2 = time.perf_counter()
+        b = _clip_area_boxes_numpy(p, boxes)
+        clip["native"] += t2 - t1
+        clip["numpy"] += time.perf_counter() - t2
+        worst = max(worst, float(np.abs(a - b).max()))
+    if worst > LT_NATIVE_REL * PS * PS:
+        raise AssertionError(f"native clip areas differ from numpy's by {worst}")
+    host = crop_np
+    coords = rng.integers(-16, LT_EXTRACT_SIDE - PS + 16, (LT_EXTRACT_N, 2)).astype(np.int32)
+    coords[:4] = [[-5, -5], [LT_EXTRACT_SIDE, 3], [7, LT_EXTRACT_SIDE], [0, 0]]
+    t1 = time.perf_counter()
+    got = native.extract_patches_native(host, coords, PS)
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    want = np.empty_like(got)
+    for i, (y, x) in enumerate(coords):
+        y, x = min(max(y, 0), LT_EXTRACT_SIDE - PS), min(max(x, 0), LT_EXTRACT_SIDE - PS)
+        want[i] = host[y:y + PS, x:x + PS]
+    numpy_s = time.perf_counter() - t1
+    if not np.array_equal(got, want):
+        raise AssertionError("native patch extraction differs from numpy slicing")
+    report["native"] = {"available": True, "setup_build_s": built["s"],
+                        "setup_compiled": built["compiled"], "omp_threads":
+                        native.omp_threads(), "regions": len(polys), "boxes": LT_NATIVE_BOXES,
+                        "clip_max_abs_diff": worst, "clip_native_s": clip["native"],
+                        "clip_numpy_s": clip["numpy"], "extract_patches": LT_EXTRACT_N,
+                        "extract_native_s": native_s, "extract_numpy_s": numpy_s}
+    print(f"phase 23 native: {'compiled' if built['compiled'] else 'loaded from the cache'} in "
+          f"the set-up in {built['s']:.2f} s ({native.omp_threads()} threads); clip "
+          f"areas of {len(polys)} regions x {LT_NATIVE_BOXES} boxes {clip['native']:.4f} s vs "
+          f"numpy {clip['numpy']:.4f} s, max |diff| {worst}; {LT_EXTRACT_N} patches "
+          f"{native_s:.4f} s vs numpy {numpy_s:.4f} s, equal (clamped corners included)")
+    del slide, host, crop_np
+    torch.cuda.empty_cache()
+    report["launches"] = launches
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3335,6 +3808,10 @@ def main() -> int:
             elif "Used" in line or "spill" in line:
                 usage.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
         print(f"ptxas {name}.cu: " + " | ".join(usage))
+    built = build_native()  # the host gathers of later phases take it: not in their windows
+    print(f"build: the native host library "
+          f"{'compiled with g++' if built['compiled'] else 'loaded from the cache'} in "
+          f"{built['s']:.2f} s")
 
     # 3. kernels vs plain at the main path's shapes
     slide = seeded_slide(device)
@@ -3708,9 +4185,19 @@ def main() -> int:
             k["launches"] += run_launches.get(k["name"], 0)
             k["launches_by_path"][path] = run_launches.get(k["name"], 0)
     print(f"parallel paths (phase 22, {time.perf_counter() - t22:.1f} s): " + json.dumps(par))
+
+    # 23. the long tail: the exported classifiers, the distributed
+    # checkpoints and the daemon over them, the profiler, the native library
+    t23 = time.perf_counter()
+    tail = long_tail_phase(Path(root), pairs, device)
+    for path, run_launches in tail.pop("launches").items():
+        for k in kernels:
+            k["launches"] += run_launches.get(k["name"], 0)
+            k["launches_by_path"][path] = run_launches.get(k["name"], 0)
+    print(f"long tail (phase 23, {time.perf_counter() - t23:.1f} s): " + json.dumps(tail))
     data_dir.cleanup()
 
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

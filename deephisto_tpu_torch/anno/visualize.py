@@ -4,8 +4,8 @@ without PIL.
 
 The polygons are rasterized on the host onto an RGBA overlay by a port of
 PIL's own routines (``ImagingDrawPolygon``: vertices truncated to ints, the
-scanline fill with float32 crossings, 1-px Bresenham lines, wide lines as
-filled quadrilaterals), each pixel overwritten as ``ImageDraw`` overwrites
+scanline fill with float32 crossings, both in ``geometry/raster.py``; 1-px
+Bresenham lines, wide lines as filled quadrilaterals), each pixel overwritten as ``ImageDraw`` overwrites
 it: the fill in the class colour at the fill transparency, then the outline
 in the opaque colour, a wide one kept inside the fill as PIL masks it. The
 overlay is composited with PIL's integer ``alpha_composite`` formula. The
@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..geometry.raster import (_edge, _fill_edges, _int_vertices, _polygon_fill, _round_down,
+                               _round_up)
 from .classes import AnnoDescription
 
 
@@ -71,106 +73,6 @@ class PatchVisAccent:
         # e.g. "r28_LP_7_x17311_y14066"
         s = code_str.split("_")
         return cls(layer=layer, size=patch_s, x=int(s[3][1:]), y=int(s[4][1:]), label=s[1])
-
-
-def _round_up(f: float) -> int:
-    """PIL's ROUND_UP: half away from zero."""
-    return int(math.floor(f + 0.5)) if f >= 0 else -int(math.floor(abs(f) + 0.5))
-
-
-def _round_down(f: float) -> int:
-    """PIL's ROUND_DOWN."""
-    return int(math.ceil(f - 0.5)) if f >= 0 else -int(math.ceil(abs(f) - 0.5))
-
-
-def _edge(x0: int, y0: int, x1: int, y1: int) -> dict:
-    """PIL's ``add_edge``: the slope in float32."""
-    dx = np.float32(0.0) if y0 == y1 else np.float32(x1 - x0) / np.float32(y1 - y0)
-    return {"xmin": min(x0, x1), "xmax": max(x0, x1), "ymin": min(y0, y1),
-            "ymax": max(y0, y1), "dx": dx, "x0": x0, "y0": y0}
-
-
-def _x_at(e: dict, y: int) -> np.float32:
-    return np.float32(y - e["y0"]) * e["dx"] + np.float32(e["x0"])
-
-
-def _fill_edges(mask: np.ndarray, edges: list[dict], ink: bool = True) -> None:
-    """PIL's scanline fill (``polygon_generic`` without antialiasing) of
-    an edge list into a boolean (h, w) mask: each row's crossings in
-    float32, paired left to right, each span [ROUND_UP(a), ROUND_DOWN(b)];
-    horizontal edges drawn as they are; corners joined as PIL joins them."""
-    h, w = mask.shape
-
-    def hline(x0: int, y: int, x1: int) -> None:
-        if 0 <= y < h and x0 < w and x1 >= 0:
-            mask[y, max(x0, 0) : min(x1, w - 1) + 1] = ink
-
-    table = []
-    ymin, ymax = h - 1, 0
-    for e in edges:
-        ymin, ymax = min(ymin, e["ymin"]), max(ymax, e["ymax"])
-        if e["ymin"] == e["ymax"]:
-            hline(e["xmin"], e["ymin"], e["xmax"])
-        else:
-            table.append(e)
-    for y in range(max(ymin, 0), min(ymax, h) + 1):
-        xx: list[np.float32] = []
-        for i, cur in enumerate(table):
-            if not cur["ymin"] <= y <= cur["ymax"]:
-                continue
-            xx.append(_x_at(cur, y))
-            if y == cur["ymax"] and y < ymax:
-                xx.append(xx[-1])  # PIL: "needed to draw consistent polygons"
-            elif cur["dx"] != 0 and len(xx) % 2 == 1 and np.round(xx[-1]) == xx[-1]:
-                for k in range(i):  # PIL: "connect discontiguous corners"
-                    other = table[k]
-                    if (cur["dx"] > 0 and other["dx"] <= 0) or (cur["dx"] < 0 and other["dx"] >= 0):
-                        continue
-                    if (((y == cur["ymin"] and y == other["ymin"])
-                         or (y == cur["ymax"] and y == other["ymax"]))
-                            and xx[-1] == _x_at(other, y)):
-                        off = -1 if y == ymax else 1
-                        a, b = _x_at(cur, y + off), _x_at(other, y + off)
-                        if y == cur["ymax"]:
-                            v = max(a, b) + 1 if cur["dx"] > 0 else min(a, b) - 1
-                        else:
-                            v = min(a, b) if cur["dx"] > 0 else max(a, b) + 1
-                        if k < len(xx):
-                            xx[k] = np.float32(v)
-                        break
-        xx.sort()
-        for i in range(1, len(xx), 2):
-            x_start, x_end = _round_up(float(xx[i - 1])), _round_down(float(xx[i]))
-            if x_end >= x_start:
-                hline(x_start, y, x_end)
-
-
-def _int_vertices(vertices) -> list[tuple[int, int]]:
-    """The vertices as PIL's ``draw_polygon`` takes them: truncated to ints."""
-    return [(int(x), int(y)) for x, y in vertices]
-
-
-def _polygon_fill(ixy: list[tuple[int, int]], h: int, w: int) -> np.ndarray:
-    """PIL's ``ImagingDrawPolygon(fill=1)`` as an (h, w) boolean mask: the
-    edge list (a horizontal edge right after another one in the same
-    direction merged into it), then the scanline fill."""
-    edges: list[dict] = []
-    n = len(ixy)
-    for i in range(n - 1):
-        (x0, y0), (x1, y1) = ixy[i], ixy[i + 1]
-        if y0 == y1 and i != 0 and y0 == ixy[i - 1][1]:
-            if x1 > x0 > ixy[i - 1][0]:
-                edges[-1]["xmax"] = x1
-                continue
-            if x1 < x0 < ixy[i - 1][0]:
-                edges[-1]["xmin"] = x1
-                continue
-        edges.append(_edge(x0, y0, x1, y1))
-    if ixy[-1] != ixy[0]:
-        edges.append(_edge(*ixy[-1], *ixy[0]))
-    mask = np.zeros((h, w), dtype=bool)
-    _fill_edges(mask, edges)
-    return mask
 
 
 def _line(mask: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> None:

@@ -65,9 +65,26 @@ def clip_area_batch(verts: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     n, v = a.shape[0], a.shape[1]
     out = out.reshape(n, 5 * v, 2)
     out = torch.minimum(out.clamp_min(0.0), wh)  # clamp into the box-local frame
+    return shoelace_area_device(out)
 
-    x = out[..., 0]
-    y = out[..., 1]
-    area2 = (x * torch.roll(y, -1, dims=1)).sum(dim=1) - (torch.roll(x, -1, dims=1) * y).sum(dim=1)
+
+
+def clip_area_regions(
+    region_verts: torch.Tensor, region_idx: torch.Tensor, boxes: torch.Tensor
+) -> torch.Tensor:
+    """areas (B,) of region[region_idx_b] ∩ box_b.
+
+    region_verts: (R, V, 2) padded polygons; region_idx: (B,) int;
+    boxes: (B, 4).
+    """
+    return clip_area_batch(region_verts[region_idx.long()], boxes)
+
+
+def shoelace_area_device(verts: torch.Tensor) -> torch.Tensor:
+    """Unsigned areas (…,) for padded polygons (…, V, 2)."""
+    x = verts[..., 0]
+    y = verts[..., 1]
+    area2 = (x * torch.roll(y, -1, dims=-1)).sum(dim=-1) - (
+        torch.roll(x, -1, dims=-1) * y
+    ).sum(dim=-1)
     return area2.abs() * 0.5
-

@@ -1,8 +1,8 @@
 """Exact polygon math on the host (numpy), copied from
-``deephisto_tpu/geometry/polygon.py`` (the port keeps its own copy; its
-``clip_area_boxes`` is the numpy path only: the JAX package's optional
-native C++ library is not part of the port; the one-box ``clip_area_box``,
-which nothing here calls, is left out).
+``deephisto_tpu/geometry/polygon.py`` (the port keeps its own copy).
+``clip_area_boxes`` hands batches of 64 boxes and more to the port's own
+C++/OpenMP library (``deephisto_tpu_torch/native``) where it builds, as the
+JAX package does, and takes the numpy path otherwise.
 
 Replaces the reference's shapely usage (polygon area at reference
 region_samplers.py:73, patch∩region intersection areas at :133-134 and
@@ -195,20 +195,16 @@ def repair_polygon(vertices: np.ndarray, eps: float = 1e-9) -> np.ndarray:
     return np.asarray(merged, dtype=np.float64)
 
 
-def clip_area_boxes(vertices: np.ndarray, boxes: np.ndarray) -> np.ndarray:
-    """Exact areas of polygon ∩ box for (B, 4) boxes [x0, y0, x1, y1] and a
-    simple polygon (mirrors ``polygon.intersection(patch_polygon).area`` at
-    reference region_samplers.py:133 for axis-aligned patches).
+def _subdivide_and_clamp(verts: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Split each edge of one polygon at the crossings of each box's lines
+    and clamp into the box.
 
-    Returns (B,) float64 intersection areas. Host-side batch path used by
-    dense-grid qualification and anchor precomputation; the device version
-    lives in geometry/device.py.
+    verts: (V, 2) float64; boxes: (B, 4) float64 [x0, y0, x1, y1]. Returns
+    (B, 5V, 2): box b's collapsed polygon, whose shoelace area is the
+    intersection's.
     """
-    v = np.asarray(vertices, dtype=np.float64)
-    boxes = np.asarray(boxes, dtype=np.float64)
-    B = boxes.shape[0]
-    V = v.shape[0]
-    a = np.broadcast_to(v, (B, V, 2))
+    B, V = boxes.shape[0], verts.shape[0]
+    a = np.broadcast_to(verts, (B, V, 2))
     b = np.roll(a, -1, axis=1)
     d = b - a
 
@@ -227,6 +223,8 @@ def clip_area_boxes(vertices: np.ndarray, boxes: np.ndarray) -> np.ndarray:
             ],
             axis=2,
         )  # (B, V, 4)
+    # crossings outside (0, 1) — including parallel/NaN — degrade to t=1 (a
+    # duplicate of the edge end, which adds zero shoelace area)
     ts = np.where(np.isfinite(ts) & (ts > 0.0) & (ts < 1.0), ts, 1.0)
     ts = np.sort(ts, axis=2)
 
@@ -234,7 +232,44 @@ def clip_area_boxes(vertices: np.ndarray, boxes: np.ndarray) -> np.ndarray:
     out = np.concatenate([a[:, :, None, :], pts], axis=2).reshape(B, 5 * V, 2)
     np.clip(out[..., 0], x0, x1, out=out[..., 0])
     np.clip(out[..., 1], y0, y1, out=out[..., 1])
+    return out
 
+
+def clip_area_box(
+    vertices: np.ndarray, x0: float, y0: float, x1: float, y1: float
+) -> float:
+    """Exact area of polygon ∩ [x0,x1]×[y0,y1] for a simple polygon.
+
+    Mirrors ``polygon.intersection(patch_polygon).area`` at reference
+    region_samplers.py:133 for axis-aligned patches.
+    """
+    v = np.asarray(vertices, dtype=np.float64)
+    box = np.array([[x0, y0, x1, y1]], dtype=np.float64)
+    return shoelace_area(_subdivide_and_clamp(v, box)[0])
+
+
+def clip_area_boxes(vertices: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """Exact areas of polygon ∩ box for (B, 4) boxes [x0, y0, x1, y1] and a
+    simple polygon (mirrors ``polygon.intersection(patch_polygon).area`` at
+    reference region_samplers.py:133 for axis-aligned patches).
+
+    Returns (B,) float64 intersection areas. Host-side batch path used by
+    dense-grid qualification and anchor precomputation; the device version
+    lives in geometry/device.py. Dispatches to the C++/OpenMP native library
+    when it builds (same algorithm, the same results).
+    """
+    if len(boxes) >= 64:
+        from .. import native
+
+        if native.available():
+            return native.clip_area_boxes_native(vertices, boxes)
+    return _clip_area_boxes_numpy(vertices, boxes)
+
+
+def _clip_area_boxes_numpy(vertices: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """:func:`clip_area_boxes` in numpy."""
+    out = _subdivide_and_clamp(np.asarray(vertices, dtype=np.float64),
+                               np.asarray(boxes, dtype=np.float64))
     x = out[..., 0]
     y = out[..., 1]
     return np.abs(

@@ -20,8 +20,9 @@ one global batch. BatchNorm takes the global batch's statistics
 the ``data`` group averages the gradients (an explicit reduce, not
 ``DistributedDataParallel``: the state keeps the model itself, so the
 checkpoints and predicts take it as they are, and the same reduce serves a
-tensor-parallel ViT, whose MLP shards differ across the ``model`` axis);
-the losses and correct counts are reduced over the ranks. Rank 0 alone
+tensor-parallel ViT, whose MLP shards differ across the ``model`` axis;
+its replicated parameters then take the gradients of the ``model`` group's
+first rank, one broadcast, so that their copies stay bit-equal); the losses and correct counts are reduced over the ranks. Rank 0 alone
 writes files and prints.
 
 The JAX epoch is one ``lax.scan`` program; here it is a Python loop that
@@ -154,9 +155,12 @@ class _DataParallel:
     metric reductions. Without a mesh every operation is the identity."""
 
     def __init__(self, mesh):
-        from ...parallel.mesh import batch_sharding
+        from ...parallel.mesh import MODEL_AXIS, axis_size, batch_sharding
 
         self.shard = batch_sharding(mesh) if mesh is not None else None
+        self.model_group = (mesh.get_group(MODEL_AXIS)
+                            if mesh is not None and MODEL_AXIS in (mesh.mesh_dim_names or ())
+                            and axis_size(mesh, MODEL_AXIS) > 1 else None)
 
     def rows(self, n: int) -> slice:
         return self.shard.rows(n) if self.shard else slice(0, n)
@@ -168,11 +172,17 @@ class _DataParallel:
         sync_batchnorm(net, self.shard.group if self.shard else None)
 
     def sync_gradients(self, net) -> None:
-        """Average the gradients over the data group."""
+        """Average the gradients over the data group; then, with a ``model``
+        axis, give the replicated parameters the gradients of the model
+        group's first rank, so that their copies stay bit-equal."""
         if self.shard:
             from ...parallel._comm import average_gradients
 
             average_gradients(net.parameters(), self.shard.group)
+        if self.model_group is not None:
+            from ...parallel.tensor import broadcast_replicated_gradients
+
+            broadcast_replicated_gradients(net, self.model_group)
 
     def mean_sum(self, losses, corrects):
         """The data group's mean of ``losses`` and sum of ``corrects``."""

@@ -320,7 +320,7 @@ class QuantizedViT(nn.Module):
             y = _layer_norm(x, *self._norm(f"block{i}__ln1"))
             qkv = self.dense[f"block{i}__qkv"](y).to(torch.bfloat16)
             qkv = qkv.reshape(b, n, 3, self.heads, dh)
-            att = _attention(qkv, use_flash=qkv.is_cuda and n >= vit_module.FLASH_MIN_SEQ)
+            att = _attention(qkv, use_flash=vit_module.use_flash(qkv))
             att = att.transpose(1, 2).reshape(b, n, self.dim)
             x = x + self.dense[f"block{i}__proj"](att).to(torch.bfloat16)
             y = _layer_norm(x, *self._norm(f"block{i}__ln2"))

@@ -45,9 +45,18 @@ from .resnet import BatchNorm, SameConv2d, cast_param, same_pads
 # on an H100 80GB HBM3 at 700 W a 196-token ViT-S/16 predict of an 8192²
 # slide runs 33,200 patches/s with K3 and 18,300 with the plain attention
 # (chip_smoke.py phase 10), so the card takes K3 from 196 tokens up. Fewer
-# tokens are not measured and keep the plain attention. The CPU always runs
-# the plain attention.
+# tokens are not measured and keep the plain attention. The CPU runs the
+# plain attention, except under torch.export, which records the card's route
+# (the registered K3 op, whose CPU implementation is K3's plain version).
 FLASH_MIN_SEQ = 196
+
+
+def use_flash(qkv) -> bool:
+    """Whether the attention over a (B, N, 3, H, Dh) qkv takes K3: on the
+    card from ``FLASH_MIN_SEQ`` tokens up. Under ``torch.export`` the card's
+    route is recorded whatever the tensors' device."""
+    on_card = qkv.is_cuda or torch.compiler.is_compiling()
+    return on_card and qkv.shape[1] >= FLASH_MIN_SEQ
 
 
 def _attention(qkv, use_flash: bool) -> torch.Tensor:
@@ -116,7 +125,7 @@ class MHA(nn.Module):
         b, n, _ = x.shape
         # flax's column order: (3, heads, dh) within each token's 3·dim row
         qkv = self.qkv(x).reshape(b, n, 3, self.heads, self.dim // self.heads)
-        out = _attention(qkv, use_flash=qkv.is_cuda and n >= FLASH_MIN_SEQ)
+        out = _attention(qkv, use_flash=use_flash(qkv))
         return self.proj(out.transpose(1, 2).reshape(b, n, self.dim))
 
 

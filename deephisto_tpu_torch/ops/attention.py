@@ -12,6 +12,15 @@ all three take for a dtype and head width.
 versions. ``attention_plain`` is the port of the jnp branch the JAX ViT runs
 below that length (vit.py:135-137): it is what XLA ran there, not a kernel's
 plain version, and it rounds where that branch does.
+
+K3's inference form is also the registered op ``deephisto::flash_attention``
+(qkv, scale) → out, so that ``torch.export`` can carry it (``export.py``): a
+launch through ``data_ptr()`` cannot run on the FakeTensors of a trace. The
+ViT's wrapper, :func:`flash_attention_qkv`, enters it only while tracing
+(``torch.compiler.is_compiling()``), whatever the tensors' device, so that
+a CPU export records the same node; its CUDA implementation is the launch
+below, its CPU one the plain version. Eager calls keep the direct launch,
+with no dispatcher hop.
 """
 
 from __future__ import annotations
@@ -301,6 +310,31 @@ class _FlashAttentionQKV(torch.autograd.Function):
         return _bwd_qkv(q, k, v, out, lse, do, ctx.scale), None
 
 
+def _attention_out(qkv: torch.Tensor) -> torch.Tensor:
+    """K3's output for a (B, N, 3, H, Dh) qkv: (B, H, N, Dh) in (B, N, H, Dh)
+    memory."""
+    b, n, _, h, dh = qkv.shape
+    return qkv.new_empty((b, n, h, dh)).transpose(1, 2)
+
+
+@torch.library.custom_op("deephisto::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    """K3's inference launch on the (B, N, 3, H, Dh) qkv, as a registered op."""
+    return _forward(*_split_qkv(qkv), scale, with_lse=False)[0]
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _flash_attention_op_cpu(qkv, scale):
+    out = _attention_out(qkv)
+    out.copy_(flash_attention_ref(*_split_qkv(qkv), scale))
+    return out
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_op_fake(qkv, scale):
+    return _attention_out(qkv)
+
+
 def flash_attention_qkv(qkv, scale: float) -> torch.Tensor:
     """K3 over the heads of one (B, N, 3, H, Dh) qkv projection (flax's
     column order, ``qkv[:, :, 0]`` the queries): the value of
@@ -313,6 +347,8 @@ def flash_attention_qkv(qkv, scale: float) -> torch.Tensor:
     _check(q, k, v)
     if not scale > 0:
         raise ValueError(f"flash_attention takes a scale > 0, got {scale}")
+    if torch.compiler.is_compiling():
+        return torch.ops.deephisto.flash_attention(qkv, float(scale))
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashAttentionQKV.apply(qkv, scale)
     return _forward(q, k, v, scale, with_lse=False)[0]

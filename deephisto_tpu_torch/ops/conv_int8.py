@@ -41,6 +41,16 @@ versions: ``F.conv2d`` in float64 on the integer values (exact: |y| ≤
 127²·K < 2⁵³, where float32 is not, as 127²·4608 > 2²⁴), cast to int32,
 then the epilogue as separate torch ops in the source's order. Tensors on
 the CPU take them; CUDA tensors launch K6.
+
+So that ``torch.export`` can carry K6 (``export.py``), each output form is
+also a registered op: ``deephisto::conv_int8`` (the f32 and int8 modes),
+``deephisto::conv_int8_block`` (the block mode's "int8" and "f32" outputs)
+and ``deephisto::conv_int8_block_carry`` (its carry pair). The wrappers
+enter them only while tracing (``torch.compiler.is_compiling()``), whatever
+the tensors' device, so that a CPU export records the same nodes; their
+CUDA implementations are the launches, their CPU ones the plain versions.
+Eager calls launch directly: the exact int8 predict launches K6 20 times a
+batch, and a dispatcher hop on each is a cost it does not need.
 """
 
 from __future__ import annotations
@@ -215,19 +225,130 @@ def _pads(pads):
     return tuple(tuple(int(p) for p in pair) for pair in pads)
 
 
+def _flat_pads(pads) -> list[int]:
+    return [p for pair in pads for p in pair]
+
+
+def _pair_pads(flat) -> tuple:
+    return ((int(flat[0]), int(flat[1])), (int(flat[2]), int(flat[3])))
+
+
+def _conv_int8_card(x, w, stride, pads, a, b, to_int8, oh, ow) -> torch.Tensor:
+    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
+    out = torch.empty((x.shape[0], oh, ow, w.shape[0]), device=x.device,
+                      dtype=torch.int8 if to_int8 else torch.float32)
+    _launch(x, w, stride, pads, a, b, oh, ow, "int8" if to_int8 else "f32", (out,))
+    return out
+
+
+def _block_outs(x, oh, ow, cout, out):
+    shape = (x.shape[0], oh, ow, cout)
+    if out == "carry":
+        return (x.new_empty(shape, dtype=torch.bfloat16), x.new_empty(shape, dtype=torch.int8))
+    return (x.new_empty(shape, dtype=torch.int8 if out == "int8" else torch.float32),)
+
+
+def _conv_int8_block_card(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv,
+                          out, oh, ow):
+    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
+    residual = None if residual is None else residual.contiguous()
+    outs = _block_outs(x, oh, ow, w.shape[0], out)
+    _launch(x, w, stride, pads, a, b, oh, ow, "block", outs, residual, res_kind,
+            res_scale if res_kind == "int8" else None, next_inv if out != "f32" else None, out)
+    return outs if out == "carry" else outs[0]
+
+
+# -- the registered ops (module docstring) ----------------------------------
+
+@torch.library.custom_op("deephisto::conv_int8", mutates_args=(), device_types="cuda")
+def _conv_int8_op(x: torch.Tensor, w: torch.Tensor, stride: int, pads: list[int],
+                  a: torch.Tensor, b: torch.Tensor, to_int8: bool) -> torch.Tensor:
+    pads = _pair_pads(pads)
+    oh, ow = _check(x, w, stride, pads, a, b)
+    return _conv_int8_card(x, w, stride, pads, a, b, to_int8, oh, ow)
+
+
+@_conv_int8_op.register_kernel("cpu")
+def _conv_int8_op_cpu(x, w, stride, pads, a, b, to_int8):
+    return conv_int8_ref(x, w, stride, _pair_pads(pads), a, b, to_int8)
+
+
+@_conv_int8_op.register_fake
+def _conv_int8_op_fake(x, w, stride, pads, a, b, to_int8):
+    oh, ow = _check(x, w, stride, _pair_pads(pads), a, b)
+    return x.new_empty((x.shape[0], oh, ow, w.shape[0]),
+                       dtype=torch.int8 if to_int8 else torch.float32)
+
+
+def _block_op_card(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv, out):
+    pads = _pair_pads(pads)
+    oh, ow = _check(x, w, stride, pads, a, b)
+    return _conv_int8_block_card(x, w, stride, pads, a, b, residual, res_kind, res_scale,
+                                 next_inv, out, oh, ow)
+
+
+def _block_op_plain(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv, out):
+    return conv_int8_block_ref(x, w, stride, _pair_pads(pads), a, b, residual, res_kind,
+                               res_scale, next_inv, out)
+
+
+def _block_op_fake(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv, out):
+    oh, ow = _check(x, w, stride, _pair_pads(pads), a, b)
+    outs = _block_outs(x, oh, ow, w.shape[0], out)
+    return outs if out == "carry" else outs[0]
+
+
+@torch.library.custom_op("deephisto::conv_int8_block", mutates_args=(), device_types="cuda")
+def _conv_int8_block_op(x: torch.Tensor, w: torch.Tensor, stride: int, pads: list[int],
+                        a: torch.Tensor, b: torch.Tensor, residual: torch.Tensor | None,
+                        res_kind: str, res_scale: torch.Tensor | None,
+                        next_inv: torch.Tensor | None, out: str) -> torch.Tensor:
+    return _block_op_card(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv,
+                          out)
+
+
+_conv_int8_block_op.register_kernel("cpu")(_block_op_plain)
+_conv_int8_block_op.register_fake(_block_op_fake)
+
+
+@torch.library.custom_op("deephisto::conv_int8_block_carry", mutates_args=(),
+                         device_types="cuda")
+def _conv_int8_block_carry_op(x: torch.Tensor, w: torch.Tensor, stride: int, pads: list[int],
+                              a: torch.Tensor, b: torch.Tensor, residual: torch.Tensor | None,
+                              res_kind: str, res_scale: torch.Tensor | None,
+                              next_inv: torch.Tensor | None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _block_op_card(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv,
+                          "carry")
+
+
+@_conv_int8_block_carry_op.register_kernel("cpu")
+def _conv_int8_block_carry_op_cpu(x, w, stride, pads, a, b, residual, res_kind, res_scale,
+                                  next_inv):
+    return _block_op_plain(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv,
+                           "carry")
+
+
+@_conv_int8_block_carry_op.register_fake
+def _conv_int8_block_carry_op_fake(x, w, stride, pads, a, b, residual, res_kind, res_scale,
+                                   next_inv):
+    return _block_op_fake(x, w, stride, pads, a, b, residual, res_kind, res_scale, next_inv,
+                          "carry")
+
+
+# -- the wrappers -------------------------------------------------------------
+
 def conv_int8(x, w, stride: int, pads, a, b, to_int8: bool) -> torch.Tensor:
     """K6's f32 mode, or with ``to_int8`` its relu + requantized int8 mode
     (module docstring). CPU tensors take :func:`conv_int8_ref`; CUDA tensors
     launch the kernel (built at first use) and raise if they cannot."""
     pads = _pads(pads)
     oh, ow = _check(x, w, stride, pads, a, b)
+    if torch.compiler.is_compiling():
+        return torch.ops.deephisto.conv_int8(x, w, stride, _flat_pads(pads), a, b, to_int8)
     if x.device.type == "cpu":
         return conv_int8_ref(x, w, stride, pads, a, b, to_int8)
-    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
-    out = torch.empty((x.shape[0], oh, ow, w.shape[0]), device=x.device,
-                      dtype=torch.int8 if to_int8 else torch.float32)
-    _launch(x, w, stride, pads, a, b, oh, ow, "int8" if to_int8 else "f32", (out,))
-    return out
+    return _conv_int8_card(x, w, stride, pads, a, b, to_int8, oh, ow)
 
 
 def conv_f32(x, w, stride: int, pads, dequant, bias) -> torch.Tensor:
@@ -253,18 +374,14 @@ def conv_int8_block(x, w, stride: int, pads, a, b, residual=None, res_kind: str 
     oh, ow = _check(x, w, stride, pads, a, b)
     cout = w.shape[0]
     _check_block(x, oh, ow, cout, residual, res_kind, res_scale, next_inv, out)
+    if torch.compiler.is_compiling():
+        args = (x, w, stride, _flat_pads(pads), a, b, residual, res_kind,
+                res_scale if res_kind == "int8" else None, next_inv if out != "f32" else None)
+        if out == "carry":
+            return torch.ops.deephisto.conv_int8_block_carry(*args)
+        return torch.ops.deephisto.conv_int8_block(*args, out)
     if x.device.type == "cpu":
         return conv_int8_block_ref(x, w, stride, pads, a, b, residual, res_kind, res_scale,
                                    next_inv, out)
-    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
-    residual = None if residual is None else residual.contiguous()
-    shape = (x.shape[0], oh, ow, cout)
-    if out == "carry":
-        outs = (torch.empty(shape, device=x.device, dtype=torch.bfloat16),
-                torch.empty(shape, device=x.device, dtype=torch.int8))
-    else:
-        outs = (torch.empty(shape, device=x.device,
-                            dtype=torch.int8 if out == "int8" else torch.float32),)
-    _launch(x, w, stride, pads, a, b, oh, ow, "block", outs, residual, res_kind,
-            res_scale if res_kind == "int8" else None, next_inv if out != "f32" else None, out)
-    return outs if out == "carry" else outs[0]
+    return _conv_int8_block_card(x, w, stride, pads, a, b, residual, res_kind, res_scale,
+                                 next_inv, out, oh, ow)

@@ -99,7 +99,8 @@ def merge_vit_params(shared: dict, stacked: dict) -> dict:
 class PipelineStage(nn.Module):
     """One rank's part of a pipelined ViT: ``vit`` the ViT with no blocks
     (its stem, embed, ``pos_embed``, LayerNorm and head, replicated) and
-    ``blocks`` this stage's K blocks."""
+    ``blocks`` this stage's K blocks, the model's blocks ``first_block`` …
+    ``first_block`` + K - 1."""
 
     def __init__(self, model: nn.Module, stage: int, n_stages: int):
         super().__init__()
@@ -107,6 +108,7 @@ class PipelineStage(nn.Module):
         if n_blocks % n_stages:
             raise ValueError(f"depth {n_blocks} does not divide into {n_stages} pipeline stages")
         k = n_blocks // n_stages
+        self.first_block = stage * k
         names = [f"block{i}" for i in range(n_blocks)]
         self.vit = copy.deepcopy(model, {id(getattr(model, n)): None for n in names})
         for n in names:

@@ -17,7 +17,12 @@ Attention stays replicated: K3, K4 and K5 run on all heads on every rank
 (the fused qkv projection's output axis is laid out (3, heads, head_dim),
 so a contiguous split crosses q/k/v). Every parameter outside the MLPs is
 replicated, and its gradient is the same on every rank of the ``model``
-group (f sums the MLP input's gradient), so the replicas stay equal. The
+group (f sums the MLP input's gradient) up to the order of its sums: on a
+card the conv stem's weight gradient (cuDNN) accumulates in no fixed order,
+so two ranks' copies differ in the last bits. The train steps therefore
+broadcast the replicated parameters' gradients from the group's first rank
+(:func:`broadcast_replicated_gradients`, one broadcast a step), and the
+replicas, their optimizer moments with them, stay bit-equal. The
 optimizer's moments of a shard live with it. Composes with data
 parallelism on the mesh's ``data`` axis (``make_steps(model, mesh)``) and
 with the BatchNorm conv stem.
@@ -26,6 +31,7 @@ with the BatchNorm conv stem.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -144,6 +150,35 @@ def place_vit_tensor_parallel(state, mesh):
             new_opt.state[p] = st
     state.optimizer = new_opt
     return state
+
+
+def replicated_parameters(model: nn.Module) -> list:
+    """The parameters every rank of the ``model`` group holds whole: all but
+    the shards of :class:`ColumnParallelDense` and :class:`RowParallelDense`
+    (whose bias is whole)."""
+    sharded = set()
+    for m in model.modules():
+        if isinstance(m, ColumnParallelDense):
+            sharded |= {id(m.weight), id(m.bias)}
+        elif isinstance(m, RowParallelDense):
+            sharded.add(id(m.weight))
+    return [p for p in model.parameters() if id(p) not in sharded]
+
+
+def broadcast_replicated_gradients(model: nn.Module, group) -> None:
+    """Give every rank of ``group`` the first rank's gradients of the
+    replicated parameters, in place: one broadcast of them flattened (a
+    parameter without a gradient is skipped; every rank holds the same
+    set)."""
+    if dist.get_world_size(group) == 1:
+        return
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    grads = [p.grad for p in replicated_parameters(model) if p.grad is not None]
+    flat = _flatten_dense_tensors(grads)
+    dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+    for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(r)
 
 
 def vit_tp_state_dict(model: nn.Module, mesh) -> dict:

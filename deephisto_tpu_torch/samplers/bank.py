@@ -9,8 +9,9 @@ Patches are gathered from it by kernel K1's multi-slide mode.
 Host mode, as in the JAX package, keeps the stack in host memory as a numpy
 array: taken when the stack is over ``budget_bytes`` (``budget_bytes=0``
 asks for it). Its gathers slice the numpy stack (start indices clamped as
-the device gather clamps them) and send the patches to the device. The JAX
-package's native C++ extractor is not ported.
+the device gather clamps them), with the port's C++/OpenMP extractor
+(``native``) where it builds and numpy slicing otherwise, as in the JAX
+package, and send the patches to the device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import native
 from .._device import resolve_device
 from ..ops.gather import gather_multi_u8
 from ..slide import Slide, open_slide
@@ -79,10 +81,15 @@ class SlideBank:
                                    torch.as_tensor(coords, dtype=torch.int32), patch_size)
         s = torch.as_tensor(slide_idx).cpu().numpy()
         c = torch.as_tensor(coords).cpu().numpy()
+        out = np.empty((len(s), patch_size, patch_size, 3), dtype=np.uint8)
+        if native.available():  # it clamps the corners as below
+            for sl in np.unique(s):
+                m = s == sl
+                out[m] = native.extract_patches_native(self.images[sl], c[m], patch_size)
+            return torch.from_numpy(out).to(self.device)
         _, h, w, _ = self.images.shape
         ys = np.clip(c[:, 0], 0, h - patch_size)  # lax.dynamic_slice's clamp
         xs = np.clip(c[:, 1], 0, w - patch_size)
-        out = np.empty((len(s), patch_size, patch_size, 3), dtype=np.uint8)
         for i in range(len(s)):
             out[i] = self.images[s[i], ys[i]:ys[i] + patch_size, xs[i]:xs[i] + patch_size]
         return torch.from_numpy(out).to(self.device)

@@ -33,6 +33,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .. import native
 from .._device import resolve_device
 from .._imageio import write_png
 from ..ops.gather import gather_multi_u8, gather_normalize
@@ -71,13 +72,17 @@ def _stage(data: np.ndarray, device: torch.device, ondisk: bool = False):
 
 def _host_gather(data: np.ndarray, coords, ps: int, device: torch.device) -> torch.Tensor:
     """(N, ps, ps, 3) uint8 patches sliced from a host layer at (N, 2)
-    (y, x), uploaded to ``device`` from pinned memory."""
+    (y, x), by the C++/OpenMP extractor (``native``) where it builds, else
+    numpy, uploaded to ``device`` from pinned memory."""
     coords = torch.as_tensor(coords).cpu().numpy()
     pin = device.type == "cuda"
     out = torch.empty((len(coords), ps, ps, 3), dtype=torch.uint8, pin_memory=pin)
     view = out.numpy()
-    for i, (y, x) in enumerate(coords):
-        view[i] = data[y : y + ps, x : x + ps]
+    if data.dtype == np.uint8 and data.shape[-1] == 3 and native.available():
+        native.extract_patches_native(data, coords, ps, out=view)
+    else:
+        for i, (y, x) in enumerate(coords):
+            view[i] = data[y : y + ps, x : x + ps]
     return out.to(device, non_blocking=pin)
 
 

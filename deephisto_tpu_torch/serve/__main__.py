@@ -23,8 +23,9 @@ def main(argv=None):
     )
     p.add_argument("--config", required=True, help="model config YAML")
     p.add_argument("--weights", required=True,
-                   help="weights-only checkpoint: best_model.msgpack (flax msgpack, written "
-                        "by either package)")
+                   help="weights: best_model.msgpack (flax msgpack, written by either "
+                        "package), or a train-state checkpoint directory of "
+                        "deephisto_tpu_torch.train.dist_ckpt (its latest step)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8477)
     p.add_argument("--mode", choices=MODES, default="fcn", help="default slide mode")

@@ -206,21 +206,15 @@ class ServingEngine:
     # ------------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, config_path, weights_path, **kw) -> "ServingEngine":
-        """The engine over a trainer's artifacts: its config YAML and its
-        weights-only flax msgpack checkpoint (``best_model.msgpack``, from
-        either package). An orbax checkpoint directory is not read yet
-        (ROADMAP, queue A item 10) and raises."""
+        """The engine over a trainer's artifacts: its config YAML and either
+        its weights-only flax msgpack checkpoint (``best_model.msgpack``,
+        from either package) or a train-state checkpoint directory of
+        ``train/dist_ckpt.py`` (mesh-scale training; its latest step is
+        served, weights only)."""
         from ..models.patch_cls_simple.model import get_model
         from ..models.patch_cls_simple.utils import load_config
-        from ..train.checkpoint import load_model as load_weights
-        from ..train.checkpoint import load_variables
+        from ..train import checkpoint, dist_ckpt
 
-        if Path(weights_path).is_dir():
-            raise NotImplementedError(
-                f"{weights_path} is a directory: orbax checkpoints are not ported yet "
-                "(ROADMAP, queue A item 10, A.10: train/orbax_ckpt.py); serve a "
-                "best_model.msgpack"
-            )
         cfg = load_config(config_path)
         m = cfg["model"]
         model = get_model(
@@ -232,7 +226,8 @@ class ServingEngine:
             patch=m.get("patch", 16),
             input_size=cfg["dataset"]["patch_size"] + 2 * int(m.get("context", 0)),
         )
-        load_variables(model, load_weights(weights_path))
+        read = dist_ckpt.load_model if Path(weights_path).is_dir() else checkpoint.load_model
+        checkpoint.load_variables(model, read(weights_path))
         return cls(model, cfg, **kw)
 
     # ------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Training utilities: train state, learning-rate schedules, metrics, and
-checkpoints in the JAX package's flax msgpack format."""
+"""Training utilities: train state, learning-rate schedules, metrics,
+checkpoints in the JAX package's flax msgpack format, and (``dist_ckpt``,
+loaded on first use) sharded, async train-state checkpoints on
+``torch.distributed.checkpoint``."""
 
 from .checkpoint import (
     BEST_MODEL_FILE,
@@ -28,6 +30,7 @@ __all__ = [
     "accuracy",
     "create_train_state",
     "cross_entropy_loss",
+    "dist_ckpt",
     "load_model",
     "load_train_state",
     "load_variables",
@@ -37,3 +40,13 @@ __all__ = [
     "save_train_state",
     "set_learning_rate",
 ]
+
+
+def __getattr__(name):
+    # torch.distributed.checkpoint is imported only by code that checkpoints
+    # through it
+    if name == "dist_ckpt":
+        import importlib
+
+        return importlib.import_module(f"{__name__}.dist_ckpt")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

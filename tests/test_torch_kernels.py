@@ -737,3 +737,41 @@ def test_flash_attention_qkv_gradient_is_the_kernels_buffer_on_card():
     assert a.grad.is_contiguous()
     for i, t in enumerate(parts):
         assert torch.equal(a.grad[:, :, i].transpose(1, 2), t.grad), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["vit", "int8_resnet"])
+def test_exported_program_launches_k3_and_k6_on_card(name):
+    """A tiny ViT (196 tokens: K3) and an int8 ResNet-18 (K6) exported on the
+    card: the loaded program launches the kernels through the registered
+    ops as often as the live model launches them directly, and gives the
+    live model's logits (the int8 one bit for bit)."""
+    _need_card()
+    from deephisto_tpu_torch.export import Classifier, export_classifier, load_classifier
+    from deephisto_tpu_torch.models import ViT, quantize_resnet
+    from deephisto_tpu_torch.models.patch_cls_simple import get_model, init_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    if name == "vit":
+        model, ps, kernel = ViT(5, patch=4, dim=64, depth=2, heads=1, img_size=56), 56, att.KERNEL
+        model = init_model(model, seed=0).to(dev)
+        dtype = torch.bfloat16
+    else:
+        ps, kernel, dtype = 32, k6.KERNEL, torch.float32
+        float_model = init_model(get_model(3, depth=18, stem="s2d", dtype=torch.float32), seed=1)
+        model = quantize_resnet(float_model.to(dev), [torch.rand(4, ps, ps, 3, generator=gen)])
+    x = torch.randint(0, 256, (4, ps, ps, 3), dtype=torch.uint8, generator=gen).to(dev)
+    fn = load_classifier(export_classifier(model, 4, ps, dtype=dtype, device=dev))
+    with torch.no_grad():
+        _build.reset_launches()
+        want = Classifier(model, dtype)(x)
+        live = _build.launches.get(kernel, 0)
+        _build.reset_launches()
+        got = fn(x)
+        loaded = _build.launches.get(kernel, 0)
+    assert live > 0 and loaded == live, (live, loaded)
+    if name == "vit":
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+    else:
+        assert torch.equal(got, want)

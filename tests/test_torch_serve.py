@@ -379,9 +379,17 @@ def test_from_checkpoint(tmp_path):
 
 
 def test_from_checkpoint_orbax_dir_raises(tmp_path):
-    _, _, _, cfg_path = _r18_checkpoint(tmp_path)
-    (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    """A directory is read as the port's own train-state checkpoint
+    (``train/dist_ckpt.py``, tests/test_torch_dist_ckpt.py serves one); the
+    JAX package's orbax directory holds no step of that format and raises."""
+    from deephisto_tpu.train import create_train_state as jax_create_train_state
+    from deephisto_tpu.train import orbax_ckpt as oc
+
+    real, v, _, cfg_path = _r18_checkpoint(tmp_path)
+    mgr = oc.checkpoint_manager(tmp_path / "orbax", async_save=False)
+    oc.save_train_state(mgr, 5, jax_create_train_state(real, v, learning_rate=1e-3), epoch=2)
+    mgr.close()
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
         ServingEngine.from_checkpoint(cfg_path, tmp_path / "orbax", device="cpu")
 
 
