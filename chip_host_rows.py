@@ -1,17 +1,24 @@
-"""The host-bound rows of ``chip_smoke.py``'s phase 20 on one card, for
-readings of two trees side by side: the predict CLI's ``--host_loop``
-random and dense modes and the ONDISK dense sampler through
-``process_on_device``, on phase 20's seeded 16384² slide (layer 2) and
-seeded ResNet-18, each ``RUNS`` times in turn. The native host library is
-built first where the tree has one, outside every timed window.
+"""Rows of ``chip_smoke.py`` on one card, for readings of two trees side by
+side.
 
     python3 chip_host_rows.py TREE RUNS
+    python3 chip_host_rows.py TREE RUNS --int8
+
+By default, the host-bound rows of phase 20: the predict CLI's
+``--host_loop`` random and dense modes and the ONDISK dense sampler through
+``process_on_device``, on phase 20's seeded 16384² slide (layer 2) and
+seeded ResNet-18, each ``RUNS`` times in turn. The native host library is
+built first where the tree has one, outside every timed window. With
+``--int8``, the int8 rows: phase 3's K1 int8 calls (``check_k1_int8``: each
+layout bit-equal to its plain version, then timed), then phase 12's exact
+int8 16384² predict and phase 13's fcn headline predict (pack 8,
+pre-tiled), each best of ``MAIN_TIMED_RUNS``, ``RUNS`` times in turn.
 
 ``TREE`` is a checkout of the repository (``.`` for this one; a parent
 unpacked with ``git archive`` into a gitignored directory for the other
-side). Prints one line ``HOST_ROWS {json}`` with the patches/s of every
-run and the card's name and power limit. Run parent, change, change,
-parent in one call to compare two commits.
+side). Prints one line ``HOST_ROWS {json}`` (or ``INT8_ROWS {json}``) with
+the readings of every run and the card's name and power limit. Run parent,
+change, change, parent in one call to compare two commits.
 """
 import json
 import os
@@ -36,6 +43,35 @@ if __name__ == "__main__":
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
+    if "--int8" in sys.argv[3:]:
+        from deephisto_tpu_torch.predict import (
+            fcn_equivalent_patches,
+            predict_full_fcn,
+            predict_full_fused,
+            stage_for_fcn,
+        )
+
+        device = torch.device("cuda", 0)
+        slide = cs.seeded_slide(device)
+        dense = torch.from_numpy(dense_coords(cs.MAIN_SIDE, cs.MAIN_SIDE, cs.PS, cs.STRIDE))
+        k1 = {k: v["ms"] for k, v in cs.check_k1_int8(slide, dense, device)["by_layout"].items()}
+        qexact, qpack, _ = cs.seeded_int8(device, cs.seeded_model(device, depth=18, stem="s2d"),
+                                          slide, dense)
+        staged = stage_for_fcn(slide, tile=cs.FCN_TILE, halo=cs.FCN_HALO, pack=8, pre_tile=True)
+        n_equiv = fcn_equivalent_patches(cs.MAIN_SIDE, cs.MAIN_SIDE)
+        rec = {"exact_int8_patches_per_s": [], "fcn_headline_patches_per_s": []}
+        for r in range(runs):
+            best_s = cs.run_timed(lambda: predict_full_fused(slide, qexact, cs.N_CLASSES),
+                                  "exact int8 predict", cs.MAIN_SIDE)[3]
+            rec["exact_int8_patches_per_s"].append(len(dense) / best_s)
+            best_s = cs.run_timed(
+                lambda: predict_full_fcn(staged, qpack, cs.N_CLASSES, tile=cs.FCN_TILE,
+                                         halo=cs.FCN_HALO, tile_batch=cs.FCN_TB),
+                "fcn headline predict", cs.MAIN_SIDE)[3]
+            rec["fcn_headline_patches_per_s"].append(n_equiv / best_s)
+        print("INT8_ROWS " + json.dumps({"tree": str(tree), "card": cs.card_line(), "k1_int8_ms": k1,
+                                         **rec}), flush=True)
+        sys.exit(0)
     native = cs.build_native() if hasattr(cs, "build_native") else None
     device = torch.device("cuda", 0)
     rec = {"host_loop_random": [], "host_loop_dense": [], "ondisk_process_on_device": []}

@@ -11,12 +11,12 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
    shapes: K1 (gather + /255) bit-equal in f32 and bf16; K1's int8 mode
    (the int8 model's input quantize and stem layout fused into the gather)
    bit-equal in its three layouts at the int8 paths' shapes (s2d4: an exact
-   batch; s2d8_to_s2d4: an fcn headline step; hwc: an fcn pack-4 step, a
-   PackedSlide batch, and on the raw 3-channel slide a batch of 64 windows
-   of 224² and a step of 16 tiles of 1152², the predict CLI's ``--int8``
-   and ``--int8 --fcn`` calls), timed beside its byte bound and the parent's
-   composition (the uint8 gather or tile copy, the quantize and the pack as
-   torch ops); K2 (stitch) bit-equal to the sequential loop and identical
+   batch; s2d8_to_s2d4: an fcn headline step; hwc: an fcn pack-4 step, the
+   int8 ViT's exact batch, a PackedSlide batch, and on the raw 3-channel
+   slide a batch of 64 windows of 224² and a step of 16 tiles of 1152², the
+   predict CLI's ``--int8`` and ``--int8 --fcn`` calls), timed beside its
+   byte bound, PR 9's kernel's reading and the parent's composition (the
+   uint8 gather or tile copy, the quantize and the pack as torch ops); K2 (stitch) bit-equal to the sequential loop and identical
    from run to run (the main path's batches, spans, the map's last rows, a
    wrapping batch, N = 1 and 2,000, a band of one tile row, and the random
    predicts' coverage accumulator: (8192/16)² × 1, footprint 15, batch 64,
@@ -125,12 +125,12 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     (random and dense) and ``--int8 --fcn``, then the dense sampler in
     ONDISK mode through ``process_on_device``. Each: the kernels it
     launched (K1 and K2 on the fused modes, K6 under ``--int8``) and no
-    call of a plain version, the three PNGs (512², the overlay by its
+    call of a plain version, the three JPEGs (512², the overlay by its
     formula), patches/s, peak memory, busy share (its predict call again
     under the profiler; the host loops timed under it, not on the host
     clock), the host syncs torch sees in a fused predict call
     (``torch.cuda.set_sync_debug_mode``), the host seconds of the layer-1
-    resize and the PNG writes. ``--dense`` and ``--int8 --dense`` bit-equal
+    resize and the JPEG writes. ``--dense`` and ``--int8 --dense`` bit-equal
     to ``predict_full_fused`` with the same arguments; random and ``--int8``
     random at filled 1.0 within ``max_steps``, every coverage cell ≥ 1,
     their maps, scores and coverage bit-equal to a replay of their own draws
@@ -675,6 +675,12 @@ def quantize_ops(u8, inv0):
     return torch.clamp(torch.round(u8.float() * (inv0 / 255.0)), -127, 127).to(torch.int8)
 
 
+# K1's int8 mode as PR 9 wrote it (one block a window and a few row groups,
+# staging and look-ups in turn), on the H100 80GB HBM3 at 700 W (PERF.md §6):
+# ms a call at each timed row
+PR9_INT8_MS = {"exact_s2d4": 0.0533, "fcn_headline_s2d8_to_s2d4": 0.0590, "fcn_pack4_hwc": 0.0486}
+
+
 def check_k1_int8(slide, dense, device):
     """K1's int8 mode against its plain version in its three layouts at the
     int8 paths' shapes, bit-equal on windows with odd, clamped and negative
@@ -687,10 +693,15 @@ def check_k1_int8(slide, dense, device):
     * ``s2d8_to_s2d4``: the fcn headline, 16 tiles of the pack-8 pre-tiled
       staging (144² cells of 192 bytes);
     * ``hwc``: the fcn pack-4 row, 16 tiles of the pack-4 staging (288²
-      cells of 48 bytes); checked only: a ``PackedSlide`` batch (256
-      windows of 56² cells) and, on the raw 3-channel slide, the predict
-      CLI's imagenet-stem calls: ``--int8`` (64 windows of 224²) and
-      ``--int8 --fcn`` (16 tiles of 1152² at the tile grid's corners)."""
+      cells of 48 bytes), and the int8 ViT's call, the exact path's 256
+      windows of 224² as they are; checked only: a ``PackedSlide`` batch
+      (256 windows of 56² cells) and, on the raw 3-channel slide, the
+      predict CLI's imagenet-stem calls: ``--int8`` (64 windows of 224²)
+      and ``--int8 --fcn`` (16 tiles of 1152² at the tile grid's corners).
+
+    Each timed row is printed beside the PR 9 kernel's reading on the same
+    card (H100 80GB HBM3 at 700 W, ``PR9_INT8_MS``) and with its share of
+    its byte bound, and with the kernel's plan (``ops/gather.py:int8_launch_plan``)."""
     from deephisto_tpu_torch.ops import (
         gather_multi_u8,
         gather_quantize_int8,
@@ -698,6 +709,7 @@ def check_k1_int8(slide, dense, device):
         s2d_pack4,
         unpack_s2d8,
     )
+    from deephisto_tpu_torch.ops.gather import int8_launch_plan
     from deephisto_tpu_torch.predict import stage_for_fcn, stage_packed_slide
 
     w = slide.shape[1]
@@ -733,6 +745,9 @@ def check_k1_int8(slide, dense, device):
             [tile_batch(i)[1] for i in range(n_fcn)], ps4, "hwc",
             lambda b, s, c: quantize_ops(torch.stack([b[0, y:y + ps4, x:x + ps4] for y, x in c.tolist()]),
                                          inv0)),
+        "vit_hwc": (slide[None], [one] * n_exact,
+                    [dense[i * BS:(i + 1) * BS].numpy() for i in range(n_exact)], PS, "hwc",
+                    lambda b, s, c: quantize_ops(gather_multi_u8(b, s, c, PS), inv0)),
     }
     packed_slide = stage_packed_slide(slide, keep_raw=False, device=device).packed
     checks = [(b, s[0], c[0], ps, lay) for b, s, c, ps, lay, _ in cases.values()]
@@ -779,12 +794,16 @@ def check_k1_int8(slide, dense, device):
         else:  # the bytes under the union of the batch's windows
             read = [covered_pixels(cc, ps) * c for cc in coordss]
         nbytes = np.mean(read) + len(coordss[0]) * (ps * ps * c + 12) + 256
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        plan = int8_launch_plan(bank, layout, ps)
         out[name] = {"layout": layout, "ms": ms, "plain_ms": plain_ms, "parent_ms": parent_ms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "windows": len(coordss[0]),
-                     "window": ps, "bank": list(bank.shape)}
+                     "bound_ms": bound, "share_of_bound": bound / ms, "windows": len(coordss[0]),
+                     "window": ps, "bank": list(bank.shape), "plan": plan}
+        pr9 = (f"; PR 9's kernel {PR9_INT8_MS[name]:.4f} ms ({bound / PR9_INT8_MS[name]:.0%})"
+               if name in PR9_INT8_MS else "")
         print(f"K1 gather_quantize_int8 [{name}]: {ms:.4f} ms against its byte bound "
-              f"{out[name]['bound_ms']:.4f} ms; the parent's composition {parent_ms:.4f} ms; "
-              f"plain {plain_ms:.4f} ms")
+              f"{bound:.4f} ms ({bound / ms:.0%} of it){pr9}; the parent's composition "
+              f"{parent_ms:.4f} ms; plain {plain_ms:.4f} ms; plan {json.dumps(plan)}")
     del tiles8, packed4, packed_slide
     main = out["exact_s2d4"]
     return {
@@ -798,7 +817,7 @@ def check_k1_int8(slide, dense, device):
         "bound_ms": main["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "parent_composition_ms": main["parent_ms"],
         "note": "ms, plain_ms and bound_ms: one exact int8 batch (s2d4); by_layout has the fcn "
-                "steps", "by_layout": out,
+                "steps and the int8 ViT's hwc call", "by_layout": out,
     }
 
 
@@ -1823,7 +1842,7 @@ def train_cli_phase(root: Path, sampler, device) -> dict:
         raise AssertionError(f"the ViT-S/16 CLI epoch launched {got} a step, not {want}")
     out["launches"]["train_cli_vit_s16"] = (launches, per_step)
     out_dir, save_dir = Path(cfg["training"]["out_dir"]), Path(cfg["training"]["save_dir"])
-    test_files = sorted(Path(cfg["test"]["dir"]).glob("*/*.png"))
+    test_files = sorted(Path(cfg["test"]["dir"]).glob("*/*.jpg"))
     rows = (out_dir / "metrics.csv").read_text().splitlines()
     plots = importlib.util.find_spec("matplotlib") is not None  # the trainer plots if so
     missing = [f for f in (out_dir / "best_model.msgpack", out_dir / "metrics.csv",
@@ -1951,15 +1970,18 @@ class PredictSpy:
     of ``predict_full_fused``, ``predict_full_random_fused``,
     ``predict_full_fcn``, ``ImagePredictorPatched.process``) is timed after
     a synchronize and kept (``call``), or with ``profile`` timed under the
-    profiler (the card only); the resize of the slide's layer 1 and the PNG
-    writes are timed on the host; each random step's draws are recorded;
-    every call of a kernel's plain version is counted (``plain``)."""
+    profiler (the card only); the resize of the slide's layer 1 and the
+    image writes (Pillow's ``Image.save``) are timed on the host, and the
+    arrays saved kept by file name (``saved``); each random step's draws are
+    recorded; every call of a kernel's plain version is counted
+    (``plain``)."""
 
     def __init__(self, profile: bool = False):
         self.profile = profile
         self.seconds: dict[str, float] = {}
         self.draws: list = []
         self.plain: dict[str, int] = {}
+        self.saved: dict[str, np.ndarray] = {}
         self.prof = None
 
     def _predict(self, name, fn):
@@ -2006,7 +2028,15 @@ class PredictSpy:
         patch(full_patched.ImagePredictorPatched, "process",
               self._predict("ImagePredictorPatched.process", full_patched.ImagePredictorPatched.process))
         patch(base, "_resize_uint8", self._host("resize_s", base._resize_uint8))
-        patch(full_patched, "write_png", self._host("png_s", full_patched.write_png))
+        from PIL import Image
+
+        save = self._host("image_s", Image.Image.save)
+
+        def kept(im, fp, *a, **k):
+            self.saved[Path(fp).name] = np.asarray(im)
+            return save(im, fp, *a, **k)
+
+        patch(Image.Image, "save", kept)
         draws = full._rnd_draws
 
         def record(*a):
@@ -2135,13 +2165,14 @@ def run_predict_cli(label: str, flags: dict, weights: Path, out_dir: Path) -> di
     every launch count set to 0 just before and read just after, then its
     predict call again under the profiler and once more counting its host
     syncs (the host loops, whose sampler is spent after one run, are timed
-    under the profiler only). Checks the PNGs.
+    under the profiler only). Checks the three JPEGs.
     Returns the numbers, with the run's result ("result") and its spy
     ("spy")."""
     import importlib
 
+    from PIL import Image
+
     from deephisto_tpu_torch import _build
-    from deephisto_tpu_torch._imageio import read_png
 
     cli = importlib.import_module("deephisto_tpu_torch.examples.predict_full_patched")
     host_loop = bool(flags.get("host_loop"))
@@ -2167,15 +2198,18 @@ def run_predict_cli(label: str, flags: dict, weights: Path, out_dir: Path) -> di
         raise AssertionError(f"predict CLI {label}: map {pred.shape} {pred.dtype}")
     if spy.plain:
         raise AssertionError(f"predict CLI {label} ran plain versions: {spy.plain}")
-    pngs = {k: read_png(p) for k, p in result["paths"].items()}
-    if any(a.shape != (PRED_MAP, PRED_MAP, 3) for a in pngs.values()):
-        raise AssertionError(f"predict CLI {label}: PNG shapes {[a.shape for a in pngs.values()]}")
-    if not np.array_equal(pngs["overlay"], (pngs["original"] * 0.6 + pngs["mask"] * 0.4)
+    # the arrays Pillow was given, and the JPEG files it wrote of them
+    saved = {k: spy.saved[p.name] for k, p in result["paths"].items()}
+    if (any(p.suffix != ".jpg" or Image.open(p).format != "JPEG" for p in result["paths"].values())
+            or any(a.shape != (PRED_MAP, PRED_MAP, 3) for a in saved.values())):
+        raise AssertionError(f"predict CLI {label}: images {list(result['paths'].values())}, "
+                             f"shapes {[a.shape for a in saved.values()]}")
+    if not np.array_equal(saved["overlay"], (saved["original"] * 0.6 + saved["mask"] * 0.4)
                           .astype(np.uint8)):
         raise AssertionError(f"predict CLI {label}: the overlay does not follow its formula")
     row = {"predict_s": spy.seconds["predict"], "predict_fn": spy.predict_fn,
            "cli_s": total_s, "resize_s": spy.seconds.get("resize_s"),
-           "png_s": spy.seconds.get("png_s"), "peak_gib": peak, "launches": launches,
+           "image_s": spy.seconds.get("image_s"), "peak_gib": peak, "launches": launches,
            "host_syncs": syncs,
            "busy_share": prof["device_busy_share"], "profile_wall_ms": prof["wall_ms"],
            "kernel_ms": prof["kernel_ms"], "groups_ms": prof["groups_ms"],
@@ -2259,7 +2293,7 @@ def predict_cli_phase(root: Path, device) -> dict:
               f"{row['patches_per_s']:.1f} patches/s ({row['predict_fn']}"
               + ("; under the profiler" if label.startswith("host_loop") else "") + "); busy "
               f"{row['busy_share']:.3f}; peak {row['peak_gib']:.2f} GiB; resize of layer 1 "
-              f"{row['resize_s']:.3f} s, PNGs {row['png_s']:.3f} s; CLI {row['cli_s']:.2f} s; "
+              f"{row['resize_s']:.3f} s, JPEGs {row['image_s']:.3f} s; CLI {row['cli_s']:.2f} s; "
               f"launches {row['launches']}; host syncs a predict {row['host_syncs']}"
               + (f"; steps {row['steps']} ({row['draws']} drawn)" if "draws" in row else "")
               + (f"; sampler steps {row['steps']}" if label == "host_loop_random" else ""))

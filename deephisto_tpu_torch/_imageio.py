@@ -1,12 +1,12 @@
-"""A PNG codec in numpy and ``zlib``, standing in for PIL where the port
-reads and writes patch images: the machine with the card has no PIL.
+"""A PNG reader in numpy and ``zlib``, so that the port reads PNG images
+(request bodies of the serving daemon, PNG patches of a test set) where
+Pillow is not installed; the port writes its images through Pillow, as the
+JAX package does.
 
-:func:`write_png` writes 8-bit RGB (or greyscale, from an (H, W) array),
-filter type 0 on every row, one IDAT chunk. :func:`read_png` reads 8-bit, non-interlaced greyscale, grey+alpha,
-RGB and RGBA files (PIL's ``convert("RGB")``: grey is repeated, alpha
-dropped) and undoes all five row filters, so it reads what PIL writes too:
-None, Sub (a cumulative sum mod 256), Up (a row add), and Average and Paeth
-(a per-pixel loop, which only foreign files take). Anything else raises
+:func:`read_png` reads 8-bit, non-interlaced greyscale, grey+alpha, RGB and
+RGBA files (PIL's ``convert("RGB")``: grey is repeated, alpha dropped) and
+undoes all five row filters: None, Sub (a cumulative sum mod 256), Up (a
+row add), and Average and Paeth (a per-pixel loop). Anything else raises
 ``ValueError``.
 """
 
@@ -20,33 +20,6 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def encode_png(image: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 (RGB) or (H, W) uint8 (greyscale) → PNG bytes."""
-    image = np.asarray(image)
-    grey = image.ndim == 2
-    if image.dtype != np.uint8 or not (grey or (image.ndim == 3 and image.shape[2] == 3)):
-        raise ValueError(f"write_png takes (H, W, 3) or (H, W) uint8, got {image.shape} "
-                         f"{image.dtype}")
-    h, w = image.shape[:2]
-    c = 1 if grey else 3
-    rows = np.zeros((h, 1 + c * w), dtype=np.uint8)  # filter byte 0 on every row
-    rows[:, 1:] = image.reshape(h, c * w)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2, 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + _chunk(b"IEND", b""))
-
-
-def write_png(path: Path | str, image: np.ndarray) -> Path:
-    path = Path(path)
-    path.write_bytes(encode_png(image))
-    return path
 
 
 def _unfilter_slow(kind: int, cur: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:

@@ -92,6 +92,7 @@ using flash::mbar_arrive;
 using flash::mbar_arrive_expect_tx;
 using flash::mbar_fence_init;
 using flash::mbar_init;
+using flash::mbar_wait_or_trap;
 using flash::named_barrier;
 using flash::setmaxnreg_dec;
 using flash::setmaxnreg_inc;
@@ -569,18 +570,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int x
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(map), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-// mbarrier wait that traps after 4 s: a copy that never lands faults the
-// launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u64 t0, t1;\nmov.u64 t0, %%globaltimer;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@p bra DONE;\n"
-      "mov.u64 t1, %%globaltimer;\nsub.u64 t1, t1, t0;\nsetp.lt.u64 p, t1, 4000000000;\n"
-      "@p bra LAB_WAIT;\ntrap;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
       : "memory");
 }
 

@@ -4,8 +4,10 @@
 // the row sums di = Σ O∘dO, operand strides, the kernel designs, the device
 // guard of the C entry points, and Hopper's 128-byte swizzled tiles, wgmma
 // descriptors, wgmma m64n64k16 (A from shared memory or registers) and its
-// fences, mbarriers, TMA copies, setmaxnreg, and the host-side TMA map of an
-// operand (encode_tile_map).
+// fences, mbarriers (and a wait that traps after 4 s), TMA copies,
+// setmaxnreg, and the host-side TMA map of an operand (encode_tile_map).
+// K6 (conv_int8.cu) and K1's int8 mode (gather.cu) take the mbarriers and
+// the device guard from here too.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4·g + c): an accumulator
 // d[0..3] holds rows g, g, g+8, g+8 and columns 2c, 2c+1, 2c, 2c+1 of its
@@ -347,6 +349,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
+// mbarrier wait that traps after 4 s: a copy that never lands faults the
+// launch instead of hanging the card. The clock is read only once the first
+// try has failed.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n@p bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\nsub.u64 t1, t1, t0;\nsetp.lt.u64 p, t1, 4000000000;\n"
+      "@p bra LAB_WAIT;\ntrap;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
 // The 64 × 64 box at rows row0.. of head (b, h) into shared address dst.
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const void* map, int row0, int h, int b,
                                               uint32_t bar) {
@@ -376,9 +393,9 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // stride along Dh (16-byte aligned, strides of 8 elements: the wrapper
 // checks): 64 × 64 boxes into the 128-byte swizzled layout, rows past N read
 // as zeros. cuTensorMapEncodeTiled is looked up through the runtime
-// (cudaGetDriverEntryPoint), so the library links no libcuda. Host code.
-inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int batch, int heads,
-                                   int n, const Strides& s) {
+// (cudaGetDriverEntryPoint, tiled_map_encoder), so the library links no
+// libcuda. Host code.
+inline cudaError_t tiled_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -389,6 +406,15 @@ inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int batch
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base, int batch, int heads,
+                                   int n, const Strides& s) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  const cudaError_t err = tiled_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[4] = {64, cuuint64_t(n), cuuint64_t(heads), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(s.n) * 2, cuuint64_t(s.h) * 2, cuuint64_t(s.b) * 2};
   const cuuint32_t box[4] = {64, kTile, 1, 1}, elem_strides[4] = {1, 1, 1, 1};

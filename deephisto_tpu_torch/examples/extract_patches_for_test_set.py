@@ -1,6 +1,7 @@
 """Example of preparing patches for a test set (mirror of reference
 examples/extract_patches_for_test_set.py; flags default to its hardcoded
-values). The patches are PNG files (``extract_and_save_subset``)."""
+values). The patches are JPEG files written by Pillow
+(``extract_and_save_subset``), as the JAX package writes them."""
 
 import argparse
 from pathlib import Path

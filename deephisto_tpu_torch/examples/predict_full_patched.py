@@ -10,7 +10,8 @@ through a host predictor, random or with ``--dense`` dense), ``--int8``
 (post-training int8 quantization, calibrated on patches of the slide
 itself, then the random or dense predict) and ``--fcn`` (the
 fully-convolutional mode; with ``--int8`` on the int8 model). The mask, the
-slide preview and the overlay are written as PNG under ``./output/``.
+slide preview and the overlay are written as JPEG under ``./output/``, by
+Pillow, as the JAX package writes them.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def predict_full_patched(
 ) -> dict:
     """The CLI's body: predict the dataset's first test slide at layer 2 in
     the mode the flags choose and write the visualizations to ``out_dir``.
-    Returns {"pred": the uint8 class map, "paths": the PNGs, "model": the
+    Returns {"pred": the uint8 class map, "paths": the JPEGs, "model": the
     model that predicted; on the device paths "scores", the score map; and
     for the random predict "coverage", "filled" and "steps"}."""
     if int8 and host_loop:

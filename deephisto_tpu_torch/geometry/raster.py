@@ -7,16 +7,19 @@ Two fills:
   each polygon with a port of PIL's own routine (``ImagingDrawPolygon``
   with ``fill=1``: the vertices truncated to ints, the edge list with a
   horizontal edge merged into the one before it, the scanline fill with
-  float32 crossings and PIL's corner joining), which the JAX function
-  reaches through ``ImageDraw.polygon(outline=1, fill=1)``. The annotation
-  overlays (``anno/visualize.py``) draw with the same routine.
+  float32 crossings of double-precision slopes and PIL 12's corner
+  joining), which the JAX function reaches through
+  ``ImageDraw.polygon(outline=1, fill=1)``. Only a polygon
+  that comes back to one of its vertices (a retraced spike, a figure
+  eight) may still differ from PIL by a few pixels on the vertex's row.
+  The annotation overlays (``anno/visualize.py``) draw with the same
+  routine.
 * :func:`polygon_mask` is an even-odd scanline fill that samples each pixel
   at its integer (x, y) position and includes the pixels that the outline
   crosses on their row. The synthetic slides are drawn with it; its masks
   need not be pixel-equal to PIL's.
 
-The port depends on no PIL (the machine with the card has Pillow, but the
-port imports none of it).
+The module imports no PIL.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import numpy as np
 
 
 def _round_up(f: float) -> int:
-    """PIL's ROUND_UP: half away from zero."""
+    """PIL's ROUND_UP, C's ``roundf``: half away from zero (``np.round``
+    rounds half to even)."""
     return int(math.floor(f + 0.5)) if f >= 0 else -int(math.floor(abs(f) + 0.5))
 
 
@@ -37,21 +41,23 @@ def _round_down(f: float) -> int:
 
 
 def _edge(x0: int, y0: int, x1: int, y1: int) -> dict:
-    """PIL's ``add_edge``: the slope in float32."""
-    dx = np.float32(0.0) if y0 == y1 else np.float32(x1 - x0) / np.float32(y1 - y0)
+    """PIL's ``add_edge``: the slope in double precision."""
+    dx = 0.0 if y0 == y1 else (x1 - x0) / (y1 - y0)
     return {"xmin": min(x0, x1), "xmax": max(x0, x1), "ymin": min(y0, y1),
             "ymax": max(y0, y1), "dx": dx, "x0": x0, "y0": y0}
 
 
-def _x_at(e: dict, y: int) -> np.float32:
-    return np.float32(y - e["y0"]) * e["dx"] + np.float32(e["x0"])
+def _x_at(e: dict, y: int) -> float:
+    """The edge's x on row y, in double precision."""
+    return (y - e["y0"]) * e["dx"] + e["x0"]
 
 
 def _fill_edges(mask: np.ndarray, edges: list[dict], ink: bool = True) -> None:
     """PIL's scanline fill (``polygon_generic`` without antialiasing) of
-    an edge list into a boolean (h, w) mask: each row's crossings in
-    float32, paired left to right, each span [ROUND_UP(a), ROUND_DOWN(b)];
-    horizontal edges drawn as they are; corners joined as PIL joins them."""
+    an edge list into a boolean (h, w) mask: each row's crossings computed
+    in double and kept in float32, paired left to right, each span
+    [ROUND_UP(a), ROUND_DOWN(b)]; horizontal edges drawn as they are;
+    corners joined as PIL joins them."""
     h, w = mask.shape
 
     def hline(x0: int, y: int, x1: int) -> None:
@@ -71,26 +77,29 @@ def _fill_edges(mask: np.ndarray, edges: list[dict], ink: bool = True) -> None:
         for i, cur in enumerate(table):
             if not cur["ymin"] <= y <= cur["ymax"]:
                 continue
-            xx.append(_x_at(cur, y))
+            xx.append(np.float32(_x_at(cur, y)))
             if y == cur["ymax"] and y < ymax:
                 xx.append(xx[-1])  # PIL: "needed to draw consistent polygons"
-            elif cur["dx"] != 0 and len(xx) % 2 == 1 and np.round(xx[-1]) == xx[-1]:
-                for k in range(i):  # PIL: "connect discontiguous corners"
-                    other = table[k]
+            elif cur["dx"] != 0 and len(xx) % 2 == 1 and _round_up(float(xx[-1])) == xx[-1]:
+                for k, other in enumerate(table):  # PIL: "connect discontiguous corners"
+                    if k == i:
+                        continue
                     if (cur["dx"] > 0 and other["dx"] <= 0) or (cur["dx"] < 0 and other["dx"] >= 0):
                         continue
                     if (((y == cur["ymin"] and y == other["ymin"])
                          or (y == cur["ymax"] and y == other["ymax"]))
-                            and xx[-1] == _x_at(other, y)):
-                        off = -1 if y == ymax else 1
-                        a, b = _x_at(cur, y + off), _x_at(other, y + off)
-                        if y == cur["ymax"]:
-                            v = max(a, b) + 1 if cur["dx"] > 0 else min(a, b) - 1
-                        else:
-                            v = min(a, b) if cur["dx"] > 0 else max(a, b) + 1
-                        if k < len(xx):
-                            xx[k] = np.float32(v)
-                        break
+                            and float(xx[-1]) == _x_at(other, y)):
+                        # the two edges' crossings on the next row (the
+                        # previous one at the current edge's bottom)
+                        off = -1 if y == cur["ymax"] else 1
+                        if other["ymin"] <= y + off <= other["ymax"]:
+                            a, b = _x_at(cur, y + off), _x_at(other, y + off)
+                            x = float(xx[-1])
+                            if x > a + 1 and x > b + 1:
+                                xx[-1] = np.float32(_round_up(max(a, b)) + 1)
+                            elif x < a - 1 and x < b - 1:
+                                xx[-1] = np.float32(_round_up(min(a, b)) - 1)
+                            break
         xx.sort()
         for i in range(1, len(xx), 2):
             x_start, x_end = _round_up(float(xx[i - 1])), _round_down(float(xx[i]))

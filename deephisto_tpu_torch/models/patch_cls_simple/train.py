@@ -44,12 +44,11 @@ seeds each epoch's generators from ``(training.seed, epoch)``, as the JAX
 trainer folds the epoch into its key, so a resumed run draws the batches of
 an uninterrupted one.
 
-Deliberate deviations, forced by the machine with the card (no PIL, no
-matplotlib): the extracted test set is PNG, not JPEG (lossless, so it holds
-the sampled pixels exactly; the JAX reader reads it too), and ``loss.jpg`` /
-``acc.jpg`` are written only where matplotlib is importable (otherwise the
-trainer says once that it skipped them; ``metrics.csv`` holds the same
-numbers). Validation runs without the training augmentations, as in the JAX
+The extracted test set is the JAX package's: JPEG files written by Pillow.
+One deliberate deviation, forced by the machine with the card (no
+matplotlib): ``loss.jpg`` / ``acc.jpg`` are written only where matplotlib is
+importable (otherwise the trainer says once that it skipped them;
+``metrics.csv`` holds the same numbers). Validation runs without the training augmentations, as in the JAX
 trainer.
 """
 
@@ -111,7 +110,7 @@ def save_plot(train_values, val_values, test_values, title, filename, out_dir) -
 
 def prepare_test_patches(cfg, device=None):
     """Extract the test set (``cfg["test"]``) from the dataset's test slides
-    into an ImageFolder of PNG patches, replacing any earlier one."""
+    into an ImageFolder of JPEG patches, replacing any earlier one."""
     ds_folder = resolve_dataset(cfg["dataset"]["folder"])
     img_anno_paths_test = get_img_ano_paths(ds_folder, sample="test")
 

@@ -1,7 +1,7 @@
 """Config loading, device pick and the test-set reader, a port of
 ``deephisto_tpu/models/patch_cls_simple/utils.py``.
 
-The machine with the card has no ``yaml`` and no PIL. :func:`load_config`
+The machine with the card has no ``yaml``. :func:`load_config`
 is the port's one YAML reader, on every machine: the subset the repo's
 configs use (nested block maps, ``#`` comments, quoted and plain scalars,
 flow lists such as ``multi_mag_layers: [1, 2, 4]``), typed as
@@ -9,8 +9,8 @@ flow lists such as ``multi_mag_layers: [1, 2, 4]``), typed as
 ``yes`` are bools, ``1e-5``, with no dot, is a string). Anything outside the
 subset (anchors, aliases, tags, block sequences, block scalars, flow maps,
 document markers, timestamps) raises ``ValueError``. :func:`load_image_folder`
-reads PNG with the port's own codec (``_imageio``) and JPEG only where PIL
-is importable.
+reads the JPEG test sets through Pillow, and PNG with the port's own codec
+(``_imageio``).
 """
 
 from __future__ import annotations
@@ -216,8 +216,8 @@ def _read_image(path: Path) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:
-        raise RuntimeError(f"{path}: reading JPEG needs PIL, which is not installed "
-                           "(the port's test sets are PNG)") from None
+        raise RuntimeError(f"{path}: reading JPEG needs PIL (Pillow), which is not "
+                           "installed") from None
     return np.asarray(Image.open(path).convert("RGB"))
 
 

@@ -29,7 +29,8 @@ KERNEL_MULTI = "gather_multi_u8"
 KERNEL_INT8 = "gather_quantize_int8"
 # K1's int8 layouts, as the kernel's Int8Layout enum numbers them
 INT8_LAYOUTS = {"hwc": 0, "s2d4": 1, "s2d8_to_s2d4": 2}
-_SMEM_LIMIT = 227 * 1024 - 64  # a block's dynamic shared memory on Hopper (csrc/gather.cu)
+_SMEM_LIMIT = 227 * 1024  # a block's dynamic shared memory on Hopper (csrc/gather.cu)
+_SLOT_TARGET = 12288  # input bytes a slot of K1's int8 ring holds, at most about
 _SIGNATURE = {
     "dh_gather_normalize": [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -252,9 +253,56 @@ def _int8_args(images, lut, layout: str, patch_size: int) -> None:
         raise ValueError(f"the s2d4 layout needs patch_size % 4 == 0, got {patch_size}")
     if layout == "s2d8_to_s2d4" and c != 192:
         raise ValueError(f"the s2d8_to_s2d4 layout takes 192-channel s2d8 cells, got {c}")
+    if not int8_launch_plan(images, layout, patch_size)["smem"]:
+        raise ValueError(f"a cell of a {patch_size}x{c} window does not fit K1's int8 block")
+
+
+def _align(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def int8_plan(layout: str, patch_size: int, channels: int, box: bool = True) -> dict:
+    """How K1's int8 mode cuts its windows, as ``csrc/gather.cu:plan_int8``
+    does. A group is the ``rows`` input rows one run of output is made from
+    (4 for s2d4, else 1), ``groups`` a window; each group is cut into
+    ``parts`` of ``per_part`` units (4×4 cells, 16-byte chunks or s2d8
+    cells), so that a part's row fits a TMA box (``box``: 2 KB of 8-byte
+    elements; else a bulk copy a row) and a slot holds about 12 KB; an item
+    is ``per_item`` groups of one part, its rows staged ``row_pitch`` bytes
+    apart; ``stages`` slots (16 consumer warps, up to 8 slots each, within
+    192 KB); ``smem``, the bytes of shared memory a block asks for, 0 where
+    the cut does not fit."""
+    pad = 15  # a row's staged bytes start up to 15 bytes early, at a 16-byte boundary
     rows = 4 if layout == "s2d4" else 1
-    if 256 * 32 + rows * ((patch_size * c + 15) // 16 * 16) > _SMEM_LIMIT:
-        raise ValueError(f"a window row of {patch_size}x{c} bytes does not fit K1's int8 block")
+    unit = {"s2d4": 4 * channels, "hwc": 16, "s2d8_to_s2d4": channels}[layout]
+    units = {"s2d4": patch_size // 4, "hwc": -(-patch_size * channels // 16),
+             "s2d8_to_s2d4": patch_size}[layout]
+    groups = patch_size // 4 if layout == "s2d4" else patch_size
+    target = min(_SLOT_TARGET // rows, 2048 - pad if box else 1 << 31)
+    parts = -(-units // max(1, target // unit))
+    per_part = -(-units // parts)
+    row_pitch = _align(per_part * unit + pad, 16)
+    per_item = max(1, min(groups, 32 // rows, _SLOT_TARGET // (rows * row_pitch)))
+    slot = _align(per_item * rows * row_pitch, 128)
+    stages = 16 * max(1, min(8, 192 * 1024 // (16 * slot)))
+    smem = _align(stages * (2 * 8 + 56), 128) + stages * slot + 256 * 32 * 4
+    if (box and row_pitch > 2048) or smem > _SMEM_LIMIT:
+        smem = 0
+    return {"box": box, "rows": rows, "groups": groups, "parts": parts, "per_part": per_part,
+            "per_item": per_item, "row_pitch": row_pitch, "stages": stages, "smem": smem}
+
+
+def int8_launch_plan(images: torch.Tensor, layout: str, patch_size: int) -> dict:
+    """The :func:`int8_plan` that K1's int8 mode launches on ``images``, as
+    ``dh_gather_quantize_int8`` picks it: a box where the bank's rows and
+    base are 16-byte aligned and the box's columns and rows fit the bank,
+    else a bulk copy a row."""
+    s, h, w, c = images.shape
+    plan = int8_plan(layout, patch_size, c, box=True)
+    if ((w * c) % 16 or images.data_ptr() % 16 or not plan["smem"] or plan["row_pitch"] > w * c
+            or plan["per_item"] * plan["rows"] > s * h):
+        plan = int8_plan(layout, patch_size, c, box=False)
+    return plan
 
 
 def gather_quantize_int8_ref(images: torch.Tensor, slide_idx, coords, patch_size: int,

@@ -14,7 +14,7 @@ over its ranks (:func:`make_mesh`, :func:`make_global_mesh`,
   mesh with the same arguments (the whole global batch, the whole slide),
   each rank takes its share, and each returns the same result on every
   rank;
-* files (checkpoints, the metrics CSV, plots, maps, PNGs) are written by
+* files (checkpoints, the metrics CSV, plots, maps, images) are written by
   rank 0 only;
 * the collectives are written out (``_comm.py``): NCCL carries them where
   each rank has its own card, gloo on the CPU and among ranks that share

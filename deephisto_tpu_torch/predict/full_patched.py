@@ -11,10 +11,9 @@ map accumulates raw logits unless ``softmax``; ``normalize_counts`` divides
 by the patches covering each cell (the reference left it commented out).
 
 :func:`perform_and_save_visualizations` writes the colorized mask, the
-downscaled slide and their overlay as PNG (``<stem>_mask.png``,
-``<stem>.png``, ``<stem>_overlay.png``), where the JAX package writes JPEG:
-the port writes with its own codec (``_imageio``), so the files hold the
-arrays exactly.
+downscaled slide and their overlay as the JAX package's JPEG files
+(``<stem>_mask.jpg``, ``<stem>.jpg``, ``<stem>_overlay.jpg``, Pillow at
+quality 95).
 """
 
 from __future__ import annotations
@@ -26,7 +25,6 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._imageio import write_png
 from ..anno import AnnoDescription
 from ..ops.stitch import scatter_add_map_exact
 from ..slide import Patch, Slide, open_slide
@@ -147,8 +145,11 @@ def perform_and_save_visualizations(
     out_dir: Path = Path("."),
 ) -> dict[str, Path]:
     """Colorized mask, downscaled original (Pillow's bilinear resize of the
-    full-resolution slide, ``Slide.get_region``), and α=0.6 overlay, as PNG
-    (reference predict_full_patched.py:81-113)."""
+    full-resolution slide, ``Slide.get_region``), and α=0.6 overlay, as
+    JPEG at quality 95 (reference predict_full_patched.py:81-113). Needs
+    Pillow."""
+    from PIL import Image
+
     out_dir = Path(out_dir)
     out_dir.mkdir(exist_ok=True, parents=True)
 
@@ -166,15 +167,15 @@ def perform_and_save_visualizations(
             img = slide.get_region((0, 0), (slide.height, slide.width), target_hw=(h, w))
 
     paths = {
-        "mask": out_dir / f"{stem}_mask.png",
-        "original": out_dir / f"{stem}.png",
-        "overlay": out_dir / f"{stem}_overlay.png",
+        "mask": out_dir / f"{stem}_mask.jpg",
+        "original": out_dir / f"{stem}.jpg",
+        "overlay": out_dir / f"{stem}_overlay.jpg",
     }
-    write_png(paths["mask"], colored)
-    write_png(paths["original"], np.ascontiguousarray(img))
+    Image.fromarray(colored).save(paths["mask"], quality=95)
+    Image.fromarray(img).save(paths["original"], quality=95)
     alpha = 0.6
     overlay = (img * alpha + colored * (1 - alpha)).astype(np.uint8)
-    write_png(paths["overlay"], overlay)
+    Image.fromarray(overlay).save(paths["overlay"], quality=95)
     return paths
 
 

@@ -35,7 +35,6 @@ import torch
 
 from .. import native
 from .._device import resolve_device
-from .._imageio import write_png
 from ..ops.gather import gather_multi_u8, gather_normalize
 from ..ops.sampling import coverage_cell_topk, gumbel
 from ..ops.stitch import accumulate_coverage, coverage_footprint
@@ -275,15 +274,20 @@ class FullImageRndSampler:
         return True
 
     def visualize_heatmap(self, name: str):
-        """The coverage accumulator as a greyscale PNG at ``name`` (scaled to
-        its maximum) and its nonzero mask at ``_<name>`` beside it."""
+        """The coverage accumulator as a greyscale image at ``name`` (scaled
+        to its maximum) and its nonzero mask at ``_<name>`` beside it (at
+        quality 98), saved by Pillow in the format of ``name``'s extension,
+        as the JAX package saves them."""
+        from PIL import Image
+
         if self._accum is not None:
             a = (self._accum / np.max(self._accum) * 255).astype(np.uint8)
-            write_png(name, a)
+            Image.fromarray(a).save(name)
+            a = np.where(a > 0, 255, 0).astype(np.uint8)
             # binary companion image: underscore-prefixed *filename* (the
             # reference prefixes the whole path, full_samplers.py:297-299)
             p = Path(name)
-            write_png(p.with_name("_" + p.name), np.where(a > 0, 255, 0).astype(np.uint8))
+            Image.fromarray(a).save(p.with_name("_" + p.name), quality=98)
 
 
 class FullImageDenseSampler:

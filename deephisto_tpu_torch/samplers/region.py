@@ -19,10 +19,8 @@ The JAX ``jax_generator`` is :meth:`AnnoRegionRndSampler.device_generator`
 here (batches on the device); ``torch_generator`` and
 ``torch_iterable_dataset`` keep their names (CPU tensors). With a host-mode
 bank the coordinates are still drawn on the device and the patches sliced on
-the host, as in the JAX package. ``extract_and_save_subset`` writes PNG, not
-JPEG: lossless, so the test set holds the sampled pixels exactly, and the
-machine with the card has no JPEG encoder; the JAX package's
-``load_image_folder`` reads ``*.png`` too.
+the host, as in the JAX package. ``extract_and_save_subset`` writes the JAX
+package's JPEG files through Pillow.
 """
 
 from __future__ import annotations
@@ -36,7 +34,6 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._imageio import write_png
 from ..anno.parse import RegionAnnotation, parse_annotations
 from ..geometry import clip_area_boxes, pad_polygons
 from ..geometry.device import clip_area_batch
@@ -792,10 +789,13 @@ def extract_and_save_subset(
     device=None,
 ):
     """Build an ImageFolder-layout patch dataset on disk,
-    ``out_folder/<class_idx>/<count>.png`` (reference region_samplers.py:874-909,
-    which wrote JPEG) — with the class-forcing bug fixed, so class-k folders
-    really contain class-k patches. A class whose regions cannot host a
-    patch at ``intersection`` leaves an empty folder."""
+    ``out_folder/<class_idx>/<count>.jpg``, written by Pillow as the JAX
+    package writes it (reference region_samplers.py:874-909) — with the
+    class-forcing bug fixed, so class-k folders really contain class-k
+    patches. A class whose regions cannot host a patch at ``intersection``
+    leaves an empty folder."""
+    from PIL import Image
+
     sampler = AnnoRegionRndSampler(
         img_anno_paths=img_anno_paths,
         layer=layer,
@@ -827,6 +827,6 @@ def extract_and_save_subset(
             for patch, _ in batch:
                 if count >= patches_per_class:
                     break
-                write_png(out_folder / str(cls_idx) / f"{count}.png", patch.data)
+                Image.fromarray(patch.data).save(out_folder / str(cls_idx) / f"{count}.jpg")
                 count += 1
     return out_folder

@@ -25,13 +25,13 @@ import jax
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from test_torch_pipeline import strict_jax_predict  # noqa: F401 (a fixture)
 from test_torch_resnet import _random_variables
 
 from deephisto_tpu.models.patch_cls_simple import predict as jax_predict
 from deephisto_tpu.models.patch_cls_simple.model import get_model as jax_get_model
 from deephisto_tpu.train import checkpoint as jck
-from deephisto_tpu_torch import _imageio
 from deephisto_tpu_torch.data import ensure_synthetic_dataset
 from deephisto_tpu_torch.examples import (
     extract_patches_for_test_set,
@@ -82,7 +82,7 @@ def test_sample_cli_bodies_run_on_the_cpu(in_dataset, capsys):
     assert sample_annotated_rnd.sample_annotated_rnd(True, n_batches=1, device="cpu").sum() == 64
     out = extract_patches_for_test_set.extract_patches_for_test_set(
         layer=1, patch_size=96, patches_per_class=2, device="cpu")
-    assert out == in_dataset / "patches_test" and len(list(out.rglob("*.png"))) > 0
+    assert out == in_dataset / "patches_test" and len(list(out.rglob("*.jpg"))) > 0
     printed = capsys.readouterr().out
     assert "(8, 224, 224, 3) (8, 2)" in printed and "items/s" in printed
 
@@ -116,7 +116,7 @@ def test_predict_cli_dense_serves_a_jax_checkpoint_as_the_jax_cli(
         jax_checkpoint, dense=True, out_dir=tmp_path / "port", device="cpu")
     assert set(got["paths"]) == {"mask", "original", "overlay"}
     for p in got["paths"].values():
-        assert _imageio.read_png(p).shape == (32, 32, 3)
+        assert p.suffix == ".jpg" and np.asarray(Image.open(p)).shape == (32, 32, 3)
 
     seen = {}
 
@@ -140,14 +140,14 @@ def test_predict_cli_dense_serves_a_jax_checkpoint_as_the_jax_cli(
 @pytest.mark.parametrize("flags", [{}, {"host_loop": True}, {"host_loop": True, "dense": True},
                                    {"int8": True}, {"int8": True, "fcn": True}])
 def test_predict_cli_modes_run_on_the_cpu(in_dataset, jax_checkpoint, tmp_path, flags):
-    """Every mode writes its map and the three PNGs; the random modes cover
+    """Every mode writes its map and the three JPEGs; the random modes cover
     the slide."""
     got = predict_full_patched.predict_full_patched(jax_checkpoint, out_dir=tmp_path, device="cpu",
                                                     **flags)
     assert got["pred"].shape == (32, 32) and got["pred"].dtype == np.uint8
     assert int(got["pred"].max()) < 5
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "test_00.png", "test_00_mask.png", "test_00_overlay.png"]
+        "test_00.jpg", "test_00_mask.jpg", "test_00_overlay.jpg"]
     if not flags.get("host_loop") and not flags.get("fcn"):
         assert got["filled"] == 1.0 and got["steps"] >= 1
 
@@ -159,7 +159,7 @@ def test_single_patch_predict_resizes_as_the_jax_cli(tmp_path):
     jck.save_model(tmp_path / "best.msgpack", v["params"], v["batch_stats"])
     for seed in range(3):
         img = np.random.default_rng(seed).integers(0, 256, (200, 300, 3), dtype=np.uint8)
-        _imageio.write_png(tmp_path / "p.png", img)
+        Image.fromarray(img).save(tmp_path / "p.png")
         np.testing.assert_array_equal(port_predict.load_image(tmp_path / "p.png", 32),
                                       jax_predict.load_image(tmp_path / "p.png", 32))
         assert port_predict.predict(tmp_path / "p.png", tmp_path / "best.msgpack", cfg,

@@ -4,8 +4,10 @@ quantize (``deephisto_tpu/models/quantize.py:493-496``) for all 256 bytes,
 and the plain version in each layout against the JAX package's gather
 (``gather_patches_multi_xla``), quantize and s2d packs, bit for bit, with
 clamped and negative starts. The quantized batches it hands the int8 ResNet
-give the logits of the uint8 batches. The kernel itself runs only on a card
-(test_torch_kernels.py)."""
+give the logits of the uint8 batches. The kernel's cut of the paths'
+windows (``int8_plan``, as ``csrc/gather.cu`` plans it) fits a block, and a
+bank takes 2-D TMA boxes only where its rows are 16-byte aligned. The
+kernel itself runs only on a card (test_torch_kernels.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from deephisto_tpu.predict.fcn import s2d_pack_image as jax_s2d_pack
 from deephisto_tpu_torch import _build
 from deephisto_tpu_torch.models import ResNet18
 from deephisto_tpu_torch.models import quantize as tq
+from deephisto_tpu_torch.ops.gather import int8_launch_plan, int8_plan
 from deephisto_tpu_torch.ops import (
     gather_patches_multi,
     gather_quantize_int8,
@@ -176,3 +179,38 @@ def test_cpu_banks_take_the_plain_version():
     got = gather_quantize_int8(bank, sidx, coords, 8, lut, "s2d4")
     assert torch.equal(got, gather_quantize_int8_ref(bank, sidx, coords, 8, lut, "s2d4"))
     assert _build.launches.get("gather_quantize_int8", 0) == 0
+
+
+# the int8 paths' calls: (layout, window, channels) of the exact batch, the
+# int8 ViT, the fcn headline and pack-4 steps, a PackedSlide batch and the
+# CLI's fcn tiles
+PLAN_CASES = [("s2d4", 224, 3), ("hwc", 224, 3), ("s2d8_to_s2d4", 144, 192), ("hwc", 288, 48),
+              ("hwc", 56, 48), ("hwc", 1152, 3)]
+
+
+@pytest.mark.parametrize("layout,ps,channels", PLAN_CASES)
+def test_int8_plan_cuts_fit_a_block(layout, ps, channels):
+    """Both of K1's int8 cuts of the paths' windows fit a Hopper block: a
+    part's row with its up to 15 leading bytes fits its staged row, a box's
+    row its 2 KB, an item's rows the producer warp's lanes, the parts cover
+    the group's units, the ring and table 227 KB."""
+    units = {"s2d4": ps // 4, "hwc": -(-ps * channels // 16), "s2d8_to_s2d4": ps}[layout]
+    unit = {"s2d4": 4 * channels, "hwc": 16, "s2d8_to_s2d4": channels}[layout]
+    for box in (True, False):
+        plan = int8_plan(layout, ps, channels, box=box)
+        assert 0 < plan["smem"] <= 227 * 1024
+        assert plan["per_part"] * unit + 15 <= plan["row_pitch"] and plan["row_pitch"] % 16 == 0
+        assert plan["parts"] * plan["per_part"] >= units > (plan["parts"] - 1) * plan["per_part"]
+        assert plan["per_item"] * plan["rows"] <= 32 and plan["stages"] % 16 == 0
+        if box:
+            assert plan["row_pitch"] <= 2048
+
+
+def test_int8_launch_plan_takes_a_box_only_for_aligned_rows():
+    """The kernel copies a bank's rows as 2-D TMA boxes only where its rows
+    and base are 16-byte aligned; otherwise one bulk copy a row."""
+    aligned = torch.zeros((1, 300, 320, 3), dtype=torch.uint8)  # rows of 960 bytes
+    assert int8_launch_plan(aligned, "s2d4", 224)["box"]
+    assert not int8_launch_plan(torch.zeros((1, 300, 301, 3), dtype=torch.uint8), "s2d4", 224)["box"]
+    shifted = torch.zeros(300 * 320 * 3 + 1, dtype=torch.uint8)[1:].view(1, 300, 320, 3)
+    assert not int8_launch_plan(shifted, "hwc", 224)["box"]

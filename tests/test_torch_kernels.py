@@ -419,12 +419,15 @@ def test_gather_multi_kernel_matches_plain_on_card():
 
 # K1's int8 mode: (layout, bank shape, window): the exact path's raw s2d4
 # windows, an odd channel count and window, PackedSlide and pack-4 tiles
-# (48 channels), the fcn's s2d8 tiles, and rows past 48 KB of shared memory
+# (48 channels), the fcn's s2d8 tiles, rows past 48 KB of shared memory, and
+# 3-channel banks whose rows are 16-byte aligned (copied as 2-D TMA boxes,
+# the odd starts inside a 16-byte chunk; the others' rows one bulk copy each)
 INT8_CASES = [
     ("s2d4", (2, 700, 900, 3), 224), ("s2d4", (1, 300, 301, 5), 20),
     ("hwc", (2, 700, 900, 3), 57), ("hwc", (1, 200, 230, 48), 56),
     ("hwc", (1, 300, 300, 48), 288), ("s2d8_to_s2d4", (3, 150, 150, 192), 144),
     ("s2d8_to_s2d4", (1, 280, 280, 192), 272), ("hwc", (1, 1100, 1100, 48), 1100),
+    ("s2d4", (2, 700, 912, 3), 224), ("hwc", (2, 700, 912, 3), 224),
 ]
 
 

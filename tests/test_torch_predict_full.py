@@ -14,16 +14,21 @@ with the same narrow float32 ResNet-18 (flax weights converted).
   forwards that order their conv sums differently); argmax bit-equal on
   every cell whose top-2 margin exceeds 1e-3. The plain and the PackedSlide
   branches, and a ``max_steps`` cut.
-* ``perform_and_save_visualizations``: the mask and the preview bit-equal to
-  the JAX package's arrays (its formula, its PIL resize), the overlay to
-  ``(img * 0.6 + colored * 0.4).astype(uint8)``.
+* ``perform_and_save_visualizations``: the mask and the preview are the
+  JAX package's arrays (its formula, its PIL resize), the overlay
+  ``(img * 0.6 + colored * 0.4).astype(uint8)``, each as Pillow's JPEG at
+  quality 95; the three files byte-equal to the ones the JAX package
+  writes from the same slide and map.
 """
+
+import io
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 from test_torch_resnet import flax_and_torch_resnet
 from test_torch_samplers_full import Draws
 
@@ -35,7 +40,6 @@ from deephisto_tpu.predict import pipeline as jax_pipeline
 from deephisto_tpu.samplers import full as jax_full
 from deephisto_tpu.slide import ArraySlide as JArraySlide
 from deephisto_tpu.slide import DEFAULT_COLORS
-from deephisto_tpu_torch._imageio import read_png
 from deephisto_tpu_torch.anno import AnnoDescription
 from deephisto_tpu_torch.predict import (
     ImagePredictorPatched,
@@ -227,15 +231,32 @@ def test_visualizations_match_jax(tmp_path, level0):
     pred = np.random.default_rng(2).integers(0, 5, (24, 28), dtype=np.uint8)
     desc = AnnoDescription.with_known_colors(DEFAULT_COLORS)
     paths = perform_and_save_visualizations(ts, desc, pred, out_dir=tmp_path / "out")
-    assert [p.name for p in paths.values()] == ["slide_mask.png", "slide.png", "slide_overlay.png"]
+    assert [p.name for p in paths.values()] == ["slide_mask.jpg", "slide.jpg", "slide_overlay.jpg"]
     colored = np.zeros((24, 28, 3), dtype=np.uint8)
     for c in JAnnoDescription.with_known_colors(DEFAULT_COLORS).anno_classes:
         colored[pred == c.id] = c.color
     img = js.get_region((0, 0), (js.height, js.width), target_hw=(24, 28))
-    np.testing.assert_array_equal(read_png(paths["mask"]), colored)
-    np.testing.assert_array_equal(read_png(paths["original"]), img)
-    np.testing.assert_array_equal(read_png(paths["overlay"]),
-                                  (img * 0.6 + colored * 0.4).astype(np.uint8))
+    # each file is the JAX package's array as Pillow's JPEG at quality 95
+    for key, want in (("mask", colored), ("original", img),
+                      ("overlay", (img * 0.6 + colored * 0.4).astype(np.uint8))):
+        buf = io.BytesIO()
+        Image.fromarray(want).save(buf, format="JPEG", quality=95)
+        assert paths[key].read_bytes() == buf.getvalue(), key
+
+
+def test_visualizations_are_the_jax_packages_files(tmp_path, level0):
+    """The three images are byte for byte the files the JAX package writes
+    from the same slide and map (names and JPEG bytes)."""
+    js, ts = JArraySlide(level0, max_layer=2), ArraySlide(level0, max_layer=2)
+    pred = np.random.default_rng(3).integers(0, 5, (24, 28), dtype=np.uint8)
+    got = perform_and_save_visualizations(ts, AnnoDescription.with_known_colors(DEFAULT_COLORS),
+                                          pred, out_dir=tmp_path / "port")
+    want = jax_fp.perform_and_save_visualizations(
+        js, JAnnoDescription.with_known_colors(DEFAULT_COLORS), pred, out_dir=tmp_path / "jax")
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].name == want[key].name
+        assert got[key].read_bytes() == want[key].read_bytes(), key
 
 
 def test_random_predict_refusals(level0, models):

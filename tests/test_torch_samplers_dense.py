@@ -13,22 +13,24 @@ float32 in both packages).
   device-mode bank on the CPU and the JAX bank gather; a region sampler over
   it samples batches with ``sample_batch`` and the generator APIs and
   refuses a device-only sample function.
-* ``extract_and_save_subset`` writes ``patches_per_class`` PNGs a feasible
-  class, each the slide's pixels at the coords the sampler drew, inside a
-  region of its class by the stated intersection; an infeasible class
-  leaves an empty folder.
+* ``extract_and_save_subset`` writes ``patches_per_class`` JPEGs a feasible
+  class, each Pillow's file of the slide's pixels at the coords the sampler
+  drew, inside a region of its class by the stated intersection; an
+  infeasible class leaves an empty folder.
 """
+
+import io
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from deephisto_tpu.samplers import AnnoRegionDenseSampler as JDense
 from deephisto_tpu.samplers import SlideBank as JBank
 from deephisto_tpu.samplers.multimag import MultiMagBank as JMultiMag
 from deephisto_tpu.samplers.multimag import stack_mags_as_channels as jax_stack
-from deephisto_tpu_torch import _imageio
 from deephisto_tpu_torch.geometry import clip_area_boxes
 from deephisto_tpu_torch.samplers import (
     AnnoRegionDenseSampler,
@@ -173,17 +175,18 @@ def test_extract_and_save_subset(synthetic_dataset, tmp_path, monkeypatch):
                 if (sampler.table.feasible & (sampler.table.class_idx.numpy() == c)).any()}
     assert 0 < len(feasible) < len(sampler.classes)
     for c in range(len(sampler.classes)):
-        files = sorted((out / str(c)).glob("*.png"), key=lambda f: int(f.stem))
+        files = sorted((out / str(c)).glob("*.jpg"), key=lambda f: int(f.stem))
         if c not in feasible:
             assert (out / str(c)).is_dir() and files == []
             continue
         assert [f.stem for f in files] == [str(i) for i in range(per_class)]
         regions = [r.vertices_layer for r in sampler.regions[sampler.classes[c]]]
         for f, patch in zip(files, by_class[c]):
-            img = _imageio.read_png(f)
             y, x = patch.pos
-            np.testing.assert_array_equal(img, patch.data)
-            np.testing.assert_array_equal(img, layer_img[y:y + ps, x:x + ps])
+            np.testing.assert_array_equal(patch.data, layer_img[y:y + ps, x:x + ps])
+            buf = io.BytesIO()
+            Image.fromarray(layer_img[y:y + ps, x:x + ps]).save(buf, format="JPEG")
+            assert f.read_bytes() == buf.getvalue()
             box = np.array([[x, y, x + ps, y + ps]], np.float64)
             best = max(float(clip_area_boxes(v, box)[0]) for v in regions)
             assert best > 0.95 * ps * ps

@@ -14,7 +14,10 @@ package's.
 * ``generator_torch`` is K1's float32 ``u8 · f32(1/255)``, within 1 ulp
   (6e-8) of the JAX sampler's ``u8 / 255``; host mode (a budget of 0
   bytes) and ONDISK over the memory map give the device mode's patches.
+* ``visualize_heatmap``: the JAX package's files, byte for byte.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -206,7 +209,7 @@ def test_visualizations(slides, tmp_path):
                                  device="cpu").seed(1)
     for _ in t.generator():
         pass
-    t.visualize_heatmap(str(tmp_path / "heat.png"))
+    t.visualize_heatmap(str(tmp_path / "heat.png"))  # saved by its extension: PNG, lossless
     heat, mask = read_png(tmp_path / "heat.png")[..., 0], read_png(tmp_path / "_heat.png")[..., 0]
     np.testing.assert_array_equal(heat, (t._accum / t._accum.max() * 255).astype(np.uint8))
     np.testing.assert_array_equal(mask, np.where(heat > 0, 255, 0))
@@ -218,6 +221,24 @@ def test_visualizations(slides, tmp_path):
     else:
         assert drawn and (tmp_path / "hist.jpg").exists()
 
+
+
+@pytest.mark.parametrize("name", ["heat.jpg", "heat.png"])
+def test_heatmap_is_the_jax_packages_files(slides, tmp_path, name):
+    """``visualize_heatmap`` writes, byte for byte, the files the JAX
+    package's writes from the same accumulator: the heatmap in the format of
+    the name's extension and its ``_`` companion at quality 98."""
+    t = full.FullImageRndSampler(slides[1], layer=2, patch_size=PS, batch_size=64,
+                                 device="cpu").seed(1)
+    for _ in t.generator():
+        pass
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    t.visualize_heatmap(str(tmp_path / "port" / name))
+    jax_full.FullImageRndSampler.visualize_heatmap(SimpleNamespace(_accum=np.asarray(t._accum)),
+                                                   str(tmp_path / "jax" / name))
+    for f in (name, "_" + name):
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
 
 def test_small_layer_is_refused(slides):
     with pytest.raises(ValueError, match="smaller than"):

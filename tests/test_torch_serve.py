@@ -29,7 +29,6 @@ import torch
 from test_torch_resnet import _random_variables
 from test_torch_streaming import narrow_resnet
 
-from deephisto_tpu_torch._imageio import encode_png
 from deephisto_tpu_torch.models import ViT
 from deephisto_tpu_torch.models.quantize import QuantizedResNet
 from deephisto_tpu_torch.models.resnet import Bottleneck, ResNet
@@ -240,11 +239,9 @@ def test_http_patch_roundtrip(http, engine):
 
 
 def test_http_patch_accepts_png(http, engine):
-    """PNG bodies, from the port's encoder and from Pillow's, decode to the
-    array; a JPEG body is decoded by Pillow."""
+    """A PNG body, read by the port's reader, decodes to the array; a JPEG
+    body is decoded by Pillow."""
     img = np.random.default_rng(5).integers(0, 255, (PS, PS, 3), dtype=np.uint8)
-    st, _, body = _post(http + "/v1/patch", encode_png(img), "image/png")
-    assert st == 200 and json.loads(body) == engine.predict_patch(img)
     pil = pytest.importorskip("PIL.Image")
     buf = io.BytesIO()
     pil.fromarray(img).save(buf, format="PNG")

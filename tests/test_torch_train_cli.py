@@ -10,9 +10,11 @@ package's, on the CPU, at small size.
 * ``load_config`` equals ``yaml.safe_load`` on every YAML config of the
   repo and on the YAML 1.1 typing cases (``1e-5`` is a string, ``1.0e-5`` a
   float, quoted strings, flow lists), and raises outside its subset.
-* The PNG codec round-trips exactly; reads PNGs of every row filter (PIL's
-  own files, and a file with all five filters) as PIL reads them; PIL and
-  the JAX ``load_image_folder`` read the port's files pixel-equal.
+* The PNG reader reads PNGs of every row filter (PIL's own files, and a
+  file with all five filters) as PIL reads them. The
+  extracted test set is JPEG, read pixel-equal by both packages'
+  ``load_image_folder``, and its files are byte for byte the ones the JAX
+  package's ``extract_and_save_subset`` writes from the same patches.
 * ``ContextWindowModel``: logits and train-mode BatchNorm updates of a
   float32 ResNet-18 (8 filters) at patch 64 and context 32 within rtol =
   atol = 1e-4 of the JAX wrapper's (``test_torch_resnet.py``'s float32
@@ -31,6 +33,7 @@ says why).
 
 import io
 import shutil
+import struct
 import zlib
 from pathlib import Path
 
@@ -62,6 +65,7 @@ from deephisto_tpu_torch.models.patch_cls_simple.utils import (
     parse_yaml,
 )
 from deephisto_tpu_torch.ops import preprocess_batch, preprocess_batch_per_sample
+from deephisto_tpu_torch.utils import get_img_ano_paths
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -126,14 +130,66 @@ def test_resume_is_the_uninterrupted_run(train_cfg):
 def test_test_set_is_png_read_alike_by_both_packages(train_cfg):
     root, cfg = train_cfg
     test_dir = Path(cfg["test"]["dir"])
-    files = sorted(test_dir.glob("*/*.png"))
-    assert files and not list(test_dir.glob("*/*.jpg"))
+    files = sorted(test_dir.glob("*/*.jpg"))
+    assert files and not list(test_dir.glob("*/*.png"))
     got = load_image_folder(test_dir)
     want = jax_utils.load_image_folder(test_dir)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
     for f in files[:4]:
-        np.testing.assert_array_equal(_imageio.read_png(f), np.asarray(Image.open(f)))
+        np.testing.assert_array_equal(got[0][files.index(f)], np.asarray(Image.open(f)))
+
+
+def test_test_set_is_the_jax_packages_files(train_cfg, tmp_path, monkeypatch):
+    """The port's ``extract_and_save_subset`` writes, byte for byte, the
+    files that the JAX package's writes when its sampler draws the same
+    patches (a stand-in replays the port's draws, infeasible classes
+    included)."""
+    import deephisto_tpu.samplers.region as jax_region
+    from deephisto_tpu_torch.samplers import region as port_region
+
+    root, cfg = train_cfg
+    pairs = get_img_ano_paths(cfg["dataset"]["folder"], "test")
+    drawn, refused = {}, {}
+    port_sampler = port_region.AnnoRegionRndSampler
+    orig_gen, orig_check = port_sampler.structs_generator, port_sampler._check_forced_cls
+
+    def spy_gen(self, *a, cls_idx, **k):
+        for batch in orig_gen(self, *a, cls_idx=cls_idx, **k):
+            drawn.setdefault(cls_idx, []).append(batch)
+            yield batch
+
+    def spy_check(self, cls_idx):
+        try:
+            return orig_check(self, cls_idx)
+        except ValueError as e:
+            refused[cls_idx] = e
+            raise
+
+    monkeypatch.setattr(port_sampler, "structs_generator", spy_gen)
+    monkeypatch.setattr(port_sampler, "_check_forced_cls", spy_check)
+    port_region.extract_and_save_subset(pairs, tmp_path / "port", 48, 2, 5, device="cpu")
+    classes = port_sampler(pairs, layer=2, patch_size=48, device="cpu", verbose=False).classes
+
+    class Replay:
+        def __init__(self, **kwargs):
+            self.classes = classes
+
+        def _check_forced_cls(self, cls_idx):
+            if cls_idx in refused:
+                raise refused[cls_idx]
+
+        def structs_generator(self, batch_size, n_batches, cls_idx):
+            yield from drawn[cls_idx]
+
+    monkeypatch.setattr(jax_region, "AnnoRegionRndSampler", Replay)
+    jax_region.extract_and_save_subset(pairs, tmp_path / "jax", 48, 2, 5)
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*"))
+    assert files == sorted(p.relative_to(tmp_path / "port") for p in (tmp_path / "port").rglob("*"))
+    assert any(p.suffix == ".jpg" for p in files) and refused
+    for p in files:
+        if p.suffix:
+            assert (tmp_path / "port" / p).read_bytes() == (tmp_path / "jax" / p).read_bytes(), p
 
 
 def test_plots_and_jpeg_need_their_libraries(tmp_path, monkeypatch):
@@ -216,9 +272,13 @@ def _png_with_filters(img: np.ndarray) -> bytes:
             pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, ul))
         rows.append(bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
     ihdr = np.array([w, h], ">u4").tobytes() + bytes([8, 2, 0, 0, 0])
-    return (_imageio.SIGNATURE + _imageio._chunk(b"IHDR", ihdr)
-            + _imageio._chunk(b"IDAT", zlib.compress(b"".join(rows)))
-            + _imageio._chunk(b"IEND", b""))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+    return (_imageio.SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
 
 
 def test_png_codec(tmp_path):
@@ -227,9 +287,8 @@ def test_png_codec(tmp_path):
     smooth = np.stack([(x * 5) % 256, (y * 3) % 256, (x + y) % 256], -1).astype(np.uint8)
     noisy = rng.integers(0, 256, (40, 36, 3), dtype=np.uint8)
     for img in (smooth, noisy, (smooth + rng.integers(0, 8, smooth.shape)).astype(np.uint8)):
-        path = _imageio.write_png(tmp_path / "port.png", img)
-        np.testing.assert_array_equal(_imageio.read_png(path), img)
-        np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")), img)
+        Image.fromarray(img).save(tmp_path / "pil.png")
+        np.testing.assert_array_equal(_imageio.read_png(tmp_path / "pil.png"), img)
         b = io.BytesIO()
         Image.fromarray(img).save(b, format="PNG")  # PIL picks its filters per row
         np.testing.assert_array_equal(_imageio.decode_png(b.getvalue()), img)
@@ -244,8 +303,6 @@ def test_png_codec(tmp_path):
         np.testing.assert_array_equal(_imageio.decode_png(b.getvalue()), want)
     with pytest.raises(ValueError):
         _imageio.decode_png(b"not a png")
-    with pytest.raises(ValueError):
-        _imageio.write_png(tmp_path / "x.png", noisy[..., :2])
 
 
 def test_context_window_model_matches_jax():
@@ -309,7 +366,7 @@ def test_predict_matches_jax(tmp_path, context):
     classes = set()
     for seed in range(3):
         img = np.random.default_rng(seed).integers(0, 256, (32, 32, 3), dtype=np.uint8)
-        _imageio.write_png(tmp_path / "p.png", img)
+        Image.fromarray(img).save(tmp_path / "p.png")
         want = jax_predict.predict(tmp_path / "p.png", tmp_path / "best.msgpack", cfg)
         got = port_predict.predict(tmp_path / "p.png", tmp_path / "best.msgpack", cfg, device="cpu")
         assert got == want
