@@ -29,6 +29,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.gather import gather_quantize_int8, s2d_pack4
+from ..profiling import blocking_copy, span
 from .pipeline import dense_coords, edge_pad, model_device, model_input
 
 FEATURE_STRIDE = 32  # ResNet total stride: stem /4 x stage strides 1,2,2,2
@@ -182,6 +183,13 @@ def tile_logits(model, xin, hh: int, ft: int, fc_kernel, pre_packed=False):
     return f.float() @ fc_kernel
 
 
+def tile_steps(n_tiles: int, tile_batch: int) -> tuple[int, int]:
+    """(tiles a step, steps) of a scan over ``n_tiles`` in steps of
+    ``tile_batch``."""
+    tb = max(1, min(tile_batch, n_tiles))
+    return tb, -(-n_tiles // tb)
+
+
 def fcn_logit_map(model, padded: torch.Tensor, pre_packed, ty: int, tx: int, tile: int,
                   halo: int, tile_batch: int, pre_tiled: bool = False) -> torch.Tensor:
     """The fc-projected stride-32 logit map (ty·ft, tx·ft, n_classes), ft =
@@ -195,8 +203,7 @@ def fcn_logit_map(model, padded: torch.Tensor, pre_packed, ty: int, tx: int, til
     ft = tile // fs  # feature rows per tile
     hh = halo // fs
     n_tiles = ty * tx
-    tb = max(1, min(tile_batch, n_tiles))
-    n_steps = -(-n_tiles // tb)
+    tb, n_steps = tile_steps(n_tiles, tile_batch)
     idx = np.minimum(np.arange(n_steps * tb), n_tiles - 1)
     pk = {False: 1, True: 4, "s2d8": 8}[pre_packed]
     tp, tc = (tile + 2 * halo) // pk, tile // pk
@@ -213,8 +220,8 @@ def fcn_logit_map(model, padded: torch.Tensor, pre_packed, ty: int, tx: int, til
             sidx, origin = idx, np.zeros((len(idx), 2), np.int64)
         else:
             sidx, origin = np.zeros_like(idx), np.stack([idx // tx, idx % tx], 1) * tc
-        sidx = torch.from_numpy(sidx.astype(np.int32)).to(device)
-        origin = torch.from_numpy(origin.astype(np.int32)).to(device)
+        sidx = blocking_copy(torch.from_numpy(sidx.astype(np.int32)), device, "xfer.h2d")
+        origin = blocking_copy(torch.from_numpy(origin.astype(np.int32)), device, "xfer.h2d")
 
         def gather_tiles(s):
             lanes = slice(s * tb, (s + 1) * tb)
@@ -225,7 +232,7 @@ def fcn_logit_map(model, padded: torch.Tensor, pre_packed, ty: int, tx: int, til
         def gather_tiles(s):
             idxs = idx[s * tb : (s + 1) * tb]
             if pre_tiled:
-                return padded[torch.from_numpy(idxs).to(device)]
+                return padded[blocking_copy(torch.from_numpy(idxs), device, "xfer.h2d")]
             return torch.stack([
                 padded[(t // tx) * tc : (t // tx) * tc + tp, (t % tx) * tc : (t % tx) * tc + tp]
                 for t in idxs.tolist()
@@ -302,7 +309,7 @@ def predict_full_fcn(
             pre_packed = "s2d8"
         h, w = image.h, image.w
     else:
-        image = torch.as_tensor(image).to(device)
+        image = blocking_copy(torch.as_tensor(image), device, "ingest.upload")
         h, w = int(image.shape[0]), int(image.shape[1])
     if h < patch_size or w < patch_size:
         raise ValueError(f"layer size {(h, w)} is smaller than patch_size {patch_size}")
@@ -320,19 +327,21 @@ def predict_full_fcn(
     kx = (w - patch_size) // fs + 1
     mh, mw = h // downscale, w // downscale
 
-    pre_tiled = False
-    if staged:
-        padded = image.tiles if image.tiles is not None else image.packed
-        pre_tiled = image.tiles is not None
-    else:
-        # edge-replicated, not zero: the halo ring feeds real convolutions
-        padded = edge_pad(image, pad_y, pad_x)
-    logit_map = fcn_logit_map(model, padded.to(device), pre_packed, ty, tx, tile, halo,
-                              tile_batch, pre_tiled=pre_tiled)
-    with torch.inference_mode():
-        wlog = _avg_pool_f32(logit_map, wf)[:ky, :kx] + _fc(model)[1]
-        argmax_map, score = _window_ensemble(wlog, wf, up, ky, kx, mh, mw)
-        argmax_map = argmax_map.cpu().numpy()
+    with span("predict.prepare", tiles=ty * tx):
+        pre_tiled = False
+        if staged:
+            padded = image.tiles if image.tiles is not None else image.packed
+            pre_tiled = image.tiles is not None
+        else:
+            # edge-replicated, not zero: the halo ring feeds real convolutions
+            padded = edge_pad(image, pad_y, pad_x)
+    with span("predict.enqueue", batches=tile_steps(ty * tx, tile_batch)[1]):
+        logit_map = fcn_logit_map(model, padded.to(device), pre_packed, ty, tx, tile, halo,
+                                  tile_batch, pre_tiled=pre_tiled)
+        with torch.inference_mode():
+            wlog = _avg_pool_f32(logit_map, wf)[:ky, :kx] + _fc(model)[1]
+            argmax_map, score = _window_ensemble(wlog, wf, up, ky, kx, mh, mw)
+    argmax_map = blocking_copy(argmax_map, "cpu", "predict.readback").numpy()
     return argmax_map, score
 
 

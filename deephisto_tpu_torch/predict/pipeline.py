@@ -27,6 +27,7 @@ import torch
 from .._device import resolve_device
 from ..ops.gather import gather_multi_u8, gather_normalize, gather_quantize_int8
 from ..ops.stitch import accumulate_coverage, coverage_footprint, scatter_add_map_exact
+from ..profiling import blocking_copy, span
 from ..samplers.full import max_coverage_steps, rnd_coords
 
 
@@ -132,7 +133,7 @@ def _checked_inputs(image, model, n_classes: int, device: torch.device):
             )
         h, w = image.h, image.w
     else:
-        image = torch.as_tensor(image).to(device)
+        image = blocking_copy(torch.as_tensor(image), device, "ingest.upload")
         if image.dtype != torch.uint8 or image.ndim != 3:
             raise ValueError(
                 f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"
@@ -232,43 +233,47 @@ def predict_full_fused(
     device = resolve_device(device)
     image, packed, h, w = _checked_inputs(image, model, n_classes, device)
     ps, bs, d = patch_size, batch_size, downscale
-    coords = dense_coords(h, w, ps, stride)
-    if packed and (ps % 4 or (coords % 4).any()):
-        if image.raw is None:
-            raise ValueError(
-                "PackedSlide prediction needs 4-aligned patch_size and coords "
-                f"(patch_size={ps}, stride={stride}); stage with keep_raw=True or pass "
-                "the raw image for arbitrary grids"
-            )
-        image, packed = image.raw, False
-    n = len(coords)
-    n_b = -(-n // bs)
-    if n_b * bs > n:
-        coords = np.concatenate([coords, np.repeat(coords[-1:], n_b * bs - n, axis=0)])
-    coords = torch.from_numpy(coords)
-    if device.type == "cuda":
-        coords = coords.pin_memory()  # lets every batch's upload run ahead
+    with span("predict.prepare") as prepare:
+        coords = dense_coords(h, w, ps, stride)
+        if packed and (ps % 4 or (coords % 4).any()):
+            if image.raw is None:
+                raise ValueError(
+                    "PackedSlide prediction needs 4-aligned patch_size and coords "
+                    f"(patch_size={ps}, stride={stride}); stage with keep_raw=True or pass "
+                    "the raw image for arbitrary grids"
+                )
+            image, packed = image.raw, False
+        n = len(coords)
+        prepare["coords"] = n
+        n_b = -(-n // bs)
+        if n_b * bs > n:
+            coords = np.concatenate([coords, np.repeat(coords[-1:], n_b * bs - n, axis=0)])
+        coords = torch.from_numpy(coords)
+        if device.type == "cuda":
+            coords = coords.pin_memory()  # lets every batch's upload run ahead
 
-    lanes = slice(0, bs)
-    if mesh is not None:
-        from ..parallel.mesh import batch_sharding
-
-        shard = batch_sharding(mesh)
-        lanes = shard.rows(bs)
-
-    step = BatchPredictor(image, packed, model, ps, d, bs, device, softmax)
-    score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
-    with torch.inference_mode():
-        for b in range(n_b):
-            real = min(bs, n - b * bs) - lanes.start  # this rank's real lanes
-            if real > 0:
-                cb = coords[b * bs + lanes.start : b * bs + lanes.stop]
-                step(score_map, cb, min(real, len(cb)))
+        lanes = slice(0, bs)
         if mesh is not None:
-            from ..parallel._comm import all_reduce_
+            from ..parallel.mesh import batch_sharding
 
-            all_reduce_(score_map, shard.group)
-        argmax_map = score_map.argmax(dim=-1).to(torch.uint8).cpu().numpy()
+            shard = batch_sharding(mesh)
+            lanes = shard.rows(bs)
+
+        step = BatchPredictor(image, packed, model, ps, d, bs, device, softmax)
+        score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        with span("predict.enqueue", batches=n_b):
+            for b in range(n_b):
+                real = min(bs, n - b * bs) - lanes.start  # this rank's real lanes
+                if real > 0:
+                    cb = coords[b * bs + lanes.start : b * bs + lanes.stop]
+                    step(score_map, cb, min(real, len(cb)))
+            if mesh is not None:
+                from ..parallel._comm import all_reduce_
+
+                all_reduce_(score_map, shard.group)
+        argmax_map = blocking_copy(score_map.argmax(dim=-1).to(torch.uint8), "cpu",
+                                   "predict.readback").numpy()
     return argmax_map, score_map
 
 

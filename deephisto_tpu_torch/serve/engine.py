@@ -22,6 +22,7 @@ one unpacked model for the other modes.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiling import span
 
 MODES = ("fcn", "dense", "random")
 
@@ -335,7 +337,7 @@ class ServingEngine:
         # a pack_l1 int8 model takes the pack=8 ("s2d8") staging
         pack = 8 if getattr(fcn_model, "pack_l1", False) else 4
         image = np.asarray(image)
-        with self._lock:
+        with self._serving():
             self._requests += 1
             pre_tile = image.shape[0] * image.shape[1] <= PRE_TILE_MAX_PIXELS
             staged = stage_for_fcn(image, tile=self.tile, halo=self.halo, pack=pack,
@@ -345,6 +347,18 @@ class ServingEngine:
             while len(self._staged) > self._max_staged:
                 self._staged.popitem(last=False)
         return {"key": key, "h": staged.h, "w": staged.w, "staged": list(self._staged)}
+
+    @contextlib.contextmanager
+    def _serving(self):
+        """Hold the engine's lock: the wait for it (``engine.lock_wait``) and
+        the hold (``engine.serve``), each a span."""
+        with span("engine.lock_wait"):
+            self._lock.acquire()
+        try:
+            with span("engine.serve"):
+                yield
+        finally:
+            self._lock.release()
 
     def evict_slide(self, key: str) -> bool:
         with self._lock:
@@ -366,56 +380,58 @@ class ServingEngine:
         from ..predict.pipeline import predict_full_fused, predict_full_random_fused
         from ..predict.streaming import predict_full_fcn_streamed
 
-        mode = mode or self.default_mode
-        if mode not in MODES:
-            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if self.is_vit and mode == "fcn":
-            raise ValueError("fcn mode needs a ResNet-family backbone")
-        if (image is None) == (key is None):
-            raise ValueError("pass exactly one of image= or key=")
-        if key is not None:
-            if mode != "fcn":
-                raise ValueError("staged slides serve the fcn mode only")
-            with self._lock:
-                staged = self._staged.get(key)
-                if staged is not None:
-                    self._staged.move_to_end(key)
-            if staged is None:
-                raise KeyError(f"no staged slide {key!r}")
-            src: Any = staged
-            h, w = staged.h, staged.w
-        else:
-            src = np.asarray(image)
-            if src.ndim != 3 or src.shape[-1] != 3 or src.dtype != np.uint8:
-                raise ValueError(f"expected (H, W, 3) uint8 slide, got {src.shape} {src.dtype}")
-            h, w = src.shape[:2]
-
-        model = self._model_for(mode)
-        dev, ps, nc = self.device, self.patch_size, self.n_classes
-        fcn = dict(patch_size=ps, tile=self.tile, halo=self.halo, tile_batch=self.tile_batch,
-                   device=dev)
-        streamed = False
-        with self._lock:
-            self._requests += 1
-            if mode == "fcn":
-                if key is None and src.nbytes > self.stream_above_bytes:
-                    streamed = True  # stripes through the card, the same map
-                    amap, _ = predict_full_fcn_streamed(src, model, nc, **fcn)
-                else:
-                    amap, _ = predict_full_fcn(src, model, nc, **fcn)
-            elif mode == "dense":
-                amap, _ = predict_full_fused(src, model, nc, patch_size=ps, device=dev)
+        with span("engine.request") as request:
+            mode = mode or self.default_mode
+            if mode not in MODES:
+                raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+            if self.is_vit and mode == "fcn":
+                raise ValueError("fcn mode needs a ResNet-family backbone")
+            if (image is None) == (key is None):
+                raise ValueError("pass exactly one of image= or key=")
+            if key is not None:
+                if mode != "fcn":
+                    raise ValueError("staged slides serve the fcn mode only")
+                with self._serving():
+                    staged = self._staged.get(key)
+                    if staged is not None:
+                        self._staged.move_to_end(key)
+                if staged is None:
+                    raise KeyError(f"no staged slide {key!r}")
+                src: Any = staged
+                h, w = staged.h, staged.w
             else:
-                # Gumbel top-k draws from the speedup-16 coverage grid: a batch
-                # larger than the grid cannot be drawn (small slides)
-                batch = min(512, (h // 16) * (w // 16))
-                amap = predict_full_random_fused(src, model, nc, patch_size=ps,
-                                                 batch_size=max(batch, 1), seed=seed,
-                                                 device=dev)[0]
-        amap = np.asarray(amap, np.uint8)
-        meta = {"mode": mode, "h": h, "w": w, "downscale": 16, "int8": self.int8,
-                "streamed": streamed, "map_shape": list(amap.shape)}
-        return amap, meta
+                src = np.asarray(image)
+                if src.ndim != 3 or src.shape[-1] != 3 or src.dtype != np.uint8:
+                    raise ValueError(f"expected (H, W, 3) uint8 slide, got {src.shape} {src.dtype}")
+                h, w = src.shape[:2]
+
+            request.update(mode=mode, h=h, w=w)
+            model = self._model_for(mode)
+            dev, ps, nc = self.device, self.patch_size, self.n_classes
+            fcn = dict(patch_size=ps, tile=self.tile, halo=self.halo, tile_batch=self.tile_batch,
+                       device=dev)
+            streamed = False
+            with self._serving():
+                self._requests += 1
+                if mode == "fcn":
+                    if key is None and src.nbytes > self.stream_above_bytes:
+                        streamed = True  # stripes through the card, the same map
+                        amap, _ = predict_full_fcn_streamed(src, model, nc, **fcn)
+                    else:
+                        amap, _ = predict_full_fcn(src, model, nc, **fcn)
+                elif mode == "dense":
+                    amap, _ = predict_full_fused(src, model, nc, patch_size=ps, device=dev)
+                else:
+                    # Gumbel top-k draws from the speedup-16 coverage grid: a batch
+                    # larger than the grid cannot be drawn (small slides)
+                    batch = min(512, (h // 16) * (w // 16))
+                    amap = predict_full_random_fused(src, model, nc, patch_size=ps,
+                                                     batch_size=max(batch, 1), seed=seed,
+                                                     device=dev)[0]
+            amap = np.asarray(amap, np.uint8)
+            meta = {"mode": mode, "h": h, "w": w, "downscale": 16, "int8": self.int8,
+                    "streamed": streamed, "map_shape": list(amap.shape)}
+            return amap, meta
 
     # ------------------------------------------------------------------
     def warmup(self, h: int, w: int, mode: str | None = None) -> dict:
