@@ -1,9 +1,11 @@
 """Native (C++/OpenMP) host helpers, a port of ``deephisto_tpu/native``.
 
-``src/native.cpp`` is the port's own copy of the JAX package's source. It
-is compiled with ``g++ -O3 -fopenmp -shared -fPIC`` at the first call that
-needs it, never at import, into ``build/deephisto_tpu_torch/`` at the
-repository root (beside the CUDA kernels of ``_build.py``). The library's
+``src/native.cpp`` is the port's own copy of the JAX package's source,
+with one function of the port's own (``stage_upload``, the slide ingest's
+upload through its pinned ring). It is compiled with ``g++ -O3 -fopenmp
+-shared -fPIC`` at the first call that needs it, never at import, into
+``build/deephisto_tpu_torch/`` at the repository root (beside the CUDA
+kernels of ``_build.py``). The library's
 file name carries a hash of the source and the flags, and it is written
 under a temporary name and moved into place with ``os.replace``, so a
 concurrent build never loads a partial file and an edited source is never
@@ -13,7 +15,7 @@ These are host helpers, not card kernels. Where ``g++`` or OpenMP is
 missing, :func:`available` is False and the callers
 (``geometry/polygon.py:clip_area_boxes``, the host modes of
 ``samplers/bank.py`` and ``samplers/full.py``) take numpy, as in the JAX
-package.
+package; ``predict/ingest.py`` takes the plain ``.to(device)``.
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ def _load() -> ctypes.CDLL | None:
         lib.clip_area_boxes.argtypes = [p, i64, p, i64, p]
         lib.polygon_areas.argtypes = [p, i64, i64, p]
         lib.extract_patches.argtypes = [p, i64, i64, p, i64, ctypes.c_int32, p]
+        i32 = ctypes.c_int32
+        lib.stage_upload.argtypes = [ctypes.c_uint64, p, p, i64, p, p, i32, p, i32, p, p, p]
+        lib.stage_upload.restype = ctypes.c_int
         lib.native_version.restype = ctypes.c_int
         lib.omp_thread_count.restype = ctypes.c_int
         _lib = lib
@@ -152,6 +157,30 @@ def extract_patches_native(
     lib.extract_patches(img.ctypes.data, img.shape[0], img.shape[1], c.ctypes.data, len(c),
                         patch_size, out.ctypes.data)
     return out
+
+
+def stage_upload_native(dst: int, src: int, table: np.ndarray, slots: list[int], slot_bytes: int,
+                        events: list[int], stream: int, threads: int,
+                        api: tuple[int, int, int]) -> int:
+    """Upload the chunks of ``table`` ((n, 5) int64 rows: source byte
+    offset from ``src``, rows, row bytes, source row stride, destination
+    byte offset from ``dst``) through the pinned ``slots`` (addresses, each
+    of ``slot_bytes``), each slot's copy to the card followed by its event
+    (``events``, raw handles) on ``stream``, the host copies over
+    ``threads`` OpenMP threads. ``api`` holds the addresses of libcuda's
+    ``cuMemcpyHtoDAsync_v2``, ``cuEventRecord`` and ``cuEventSynchronize``
+    (or stand-ins of their signatures). Returns once
+    every chunk is on the card: 0, or the first error code. The caller
+    vouches for the extent of ``src`` and ``dst``."""
+    lib = _require()
+    t = np.ascontiguousarray(table, dtype=np.int64).reshape(-1, 5)
+    if not slots or len(events) != len(slots) or threads < 1:
+        raise ValueError(f"{len(slots)} slots, {len(events)} events, {threads} threads")
+    if (t < 0).any() or (t[:, 1] * t[:, 2] > slot_bytes).any():
+        raise ValueError(f"a chunk of the table does not fit a slot of {slot_bytes} bytes")
+    n = len(slots)
+    return lib.stage_upload(dst, src, t.ctypes.data, len(t), (ctypes.c_void_p * n)(*slots),
+                            (ctypes.c_void_p * n)(*events), n, stream, threads, *api)
 
 
 def omp_threads() -> int:

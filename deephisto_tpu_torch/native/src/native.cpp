@@ -12,6 +12,10 @@
 //   * extract_patches   — parallel HWC uint8 patch extraction from a
 //                         (possibly memory-mapped) slide layer; the host-mode
 //                         SlideBank gather.
+//   * stage_upload      — the slide ingest's upload of a pageable host slide
+//                         through a ring of pinned slots (predict/ingest.py),
+//                         OpenMP row copies between the card's copies. The
+//                         port's own; the JAX package has no such upload.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 dependency).
 
@@ -129,6 +133,72 @@ void extract_patches(const uint8_t* image, int64_t H, int64_t W,
       std::memcpy(dst + r * row_bytes, src + r * W * 3, row_bytes);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The slide ingest's staged upload (predict/ingest.py): a pageable host slide
+// through a ring of pinned slots to the card, in one call, so the Python
+// thread takes the interpreter lock once for the whole slide. libcuda's
+// functions come as pointers (cuMemcpyHtoDAsync_v2, cuEventRecord,
+// cuEventSynchronize): the library links no CUDA, and a test drives the same
+// loop with stand-ins that defer each copy to the wait that covers it.
+
+typedef int (*htod_fn)(uint64_t dst, const void* src, size_t bytes, void* stream);
+typedef int (*record_fn)(void* event, void* stream);
+typedef int (*sync_fn)(void* event);
+
+static const int64_t kPiece = 256 << 10;  // bytes an OpenMP task copies
+
+// R rows of row_bytes, src_stride apart, into the contiguous dst, in pieces
+// of about kPiece handed out to `threads` threads as each finishes its last
+// (a thread descheduled by other load delays only its own piece).
+static void copy_rows(uint8_t* dst, const uint8_t* src, int64_t R, int64_t row_bytes,
+                      int64_t src_stride, int32_t threads) {
+  if (R == 1 || src_stride == row_bytes) {  // one contiguous block
+    const int64_t n = R * row_bytes, k = (n + kPiece - 1) / kPiece;
+#pragma omp parallel for num_threads(threads) schedule(dynamic, 1)
+    for (int64_t i = 0; i < k; ++i) {
+      const int64_t a = i * kPiece, b = std::min(n, a + kPiece);
+      std::memcpy(dst + a, src + a, b - a);
+    }
+    return;
+  }
+  const int64_t per = std::max<int64_t>(1, kPiece / row_bytes);
+  const int64_t k = (R + per - 1) / per;
+#pragma omp parallel for num_threads(threads) schedule(dynamic, 1)
+  for (int64_t i = 0; i < k; ++i) {
+    for (int64_t r = i * per; r < std::min(R, (i + 1) * per); ++r) {
+      std::memcpy(dst + r * row_bytes, src + r * src_stride, row_bytes);
+    }
+  }
+}
+
+// Chunk c (a row of `table`, (n_chunks, 5) int64: source byte offset, rows,
+// row bytes, source row stride, destination byte offset) goes into slot
+// c % n_slots by copy_rows, then to dst on `stream`; the slot's event is
+// recorded after it. A slot is refilled only once its event has passed, and
+// the call returns once the last chunk's has: every copy is on the card.
+// Returns 0, or the first error code (after waiting for the copies issued).
+int stage_upload(uint64_t dst, const uint8_t* src, const int64_t* table, int64_t n_chunks,
+                 uint8_t* const* slots, void* const* events, int32_t n_slots, void* stream,
+                 int32_t threads, htod_fn htod, record_fn record, sync_fn sync) {
+  int err = 0;
+  int64_t recorded = -1;
+  for (int64_t c = 0; c < n_chunks; ++c) {
+    const int64_t* t = table + 5 * c;
+    const int32_t k = static_cast<int32_t>(c % n_slots);
+    if (c >= n_slots && (err = sync(events[k]))) break;
+    copy_rows(slots[k], src + t[0], t[1], t[2], t[3], threads);
+    if ((err = htod(dst + t[4], slots[k], static_cast<size_t>(t[1] * t[2]), stream))) break;
+    if ((err = record(events[k], stream))) break;
+    recorded = c;
+  }
+  // the last recorded event covers every copy before it on the stream
+  if (recorded >= 0) {
+    const int e = sync(events[recorded % n_slots]);
+    if (!err) err = e;
+  }
+  return err;
 }
 
 int native_version() { return 1; }

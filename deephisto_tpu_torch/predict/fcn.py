@@ -30,6 +30,7 @@ import torch
 from .._device import resolve_device
 from ..ops.gather import gather_quantize_int8, s2d_pack4
 from ..profiling import blocking_copy, span
+from .ingest import upload_slide
 from .pipeline import dense_coords, edge_pad, model_device, model_input
 
 FEATURE_STRIDE = 32  # ResNet total stride: stem /4 x stage strides 1,2,2,2
@@ -309,7 +310,7 @@ def predict_full_fcn(
             pre_packed = "s2d8"
         h, w = image.h, image.w
     else:
-        image = blocking_copy(torch.as_tensor(image), device, "ingest.upload")
+        image = upload_slide(image, device)
         h, w = int(image.shape[0]), int(image.shape[1])
     if h < patch_size or w < patch_size:
         raise ValueError(f"layer size {(h, w)} is smaller than patch_size {patch_size}")

@@ -29,6 +29,7 @@ from ..ops.gather import gather_multi_u8, gather_normalize, gather_quantize_int8
 from ..ops.stitch import accumulate_coverage, coverage_footprint, scatter_add_map_exact
 from ..profiling import blocking_copy, span
 from ..samplers.full import max_coverage_steps, rnd_coords
+from .ingest import upload_slide
 
 
 def model_input(model, patches_u8: torch.Tensor) -> torch.Tensor:
@@ -133,7 +134,7 @@ def _checked_inputs(image, model, n_classes: int, device: torch.device):
             )
         h, w = image.h, image.w
     else:
-        image = blocking_copy(torch.as_tensor(image), device, "ingest.upload")
+        image = upload_slide(image, device)
         if image.dtype != torch.uint8 or image.ndim != 3:
             raise ValueError(
                 f"image must be (H, W, C) uint8, got {tuple(image.shape)} {image.dtype}"

@@ -3,7 +3,10 @@ OpenMP, built at the first call) against numpy and the JAX package's own
 library, and the callers that dispatch to it. ``g++`` exists wherever these
 tests run, so nothing here skips: a library that does not build fails."""
 
+import ctypes
+
 import numpy as np
+import pytest
 import torch
 
 from deephisto_tpu import native as jax_native
@@ -90,3 +93,42 @@ def test_host_bank_gathers_through_the_library(tmp_path):
     s = np.array([0, 1, 1, 0], np.int32)
     c = np.array([[3, 5], [100, 90], [-4, 300], [250, 250]], np.int32)
     assert torch.equal(host.gather(s, c, 64), dev.gather(s, c, 64))
+
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+@pytest.mark.parametrize("rows, row_bytes, stride", [
+    (300, 1000, 1000),  # one contiguous block of 300 kB: two pieces of the OpenMP copy
+    (300, 1000, 1300),  # rows of a wider array
+    (1, 600_003, 0),  # one row, three pieces
+    (5, 7, 7),  # fewer bytes than a piece
+    (3, 300_000, 300_001),  # strided rows wider than a piece
+    (0, 9, 9),
+])
+def test_stage_upload_native_copies_rows(rows, row_bytes, stride, threads):
+    """One chunk through one slot, its copy to the "card" a plain memmove:
+    the rows land contiguous, and nothing past them."""
+    src = np.random.default_rng(0).integers(0, 256, max(rows * max(stride, row_bytes), 1),
+                                            dtype=np.uint8)
+    slot = np.zeros(rows * row_bytes + 64, dtype=np.uint8)
+    dst = np.zeros(rows * row_bytes + 64, dtype=np.uint8)  # 64 spare bytes stay 0
+    htod = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_size_t,
+                            ctypes.c_void_p)(lambda d, s, n, stream: ctypes.memmove(d, s, n) and 0)
+    record = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)(lambda e, s: 0)
+    sync = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p)(lambda e: 0)
+    api = tuple(ctypes.cast(f, ctypes.c_void_p).value for f in (htod, record, sync))
+    table = np.array([[0, rows, row_bytes, stride, 0]])
+    err = native.stage_upload_native(dst.ctypes.data, src.ctypes.data, table, [slot.ctypes.data],
+                                     slot.nbytes, [1], 0, threads, api)
+    assert err == 0
+    want = [src[r * stride: r * stride + row_bytes] for r in range(rows)]
+    np.testing.assert_array_equal(dst[: rows * row_bytes],
+                                  np.concatenate(want) if want else dst[:0])
+    assert not dst[rows * row_bytes:].any()
+
+
+def test_stage_upload_native_refuses_a_chunk_larger_than_a_slot():
+    buf = np.zeros(64, dtype=np.uint8)
+    with pytest.raises(ValueError, match="does not fit a slot"):
+        native.stage_upload_native(buf.ctypes.data, buf.ctypes.data, np.array([[0, 4, 20, 20, 0]]),
+                                   [buf.ctypes.data], 64, [1], 0, 2, (0, 0, 0))

@@ -3,6 +3,7 @@ tests read its own (tests/test_profiling.py): ``StageTimer``'s report, and a
 trace that names the annotated region (here a Chrome/Perfetto JSON); then
 the program's own spans on a CPU int8 engine's dense and fcn predicts."""
 
+import ctypes
 import functools
 import json
 import threading
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from deephisto_tpu_torch.models.resnet import BasicBlock, ResNet
-from deephisto_tpu_torch.predict import pipeline
+from deephisto_tpu_torch.predict import ingest, pipeline
 from deephisto_tpu_torch.predict.fcn import _grid, tile_steps
 from deephisto_tpu_torch.profiling import (
     MARKS,
@@ -142,7 +143,7 @@ def test_a_thread_started_before_the_profiler_records_every_span(engine, slide, 
             assert parent.name == want[s.name]
             assert parent.start <= s.start and s.end <= parent.end
     (upload,) = [s for s in got if s.name == "ingest.upload"]
-    assert upload.attrs == {"bytes": H * W * 3, "pinned": False, "blocking": False}
+    assert upload.attrs == {"bytes": H * W * 3, "pinned": False, "blocking": False, "staged": 0}
     (enqueue,) = [s for s in got if s.name == "predict.enqueue"]
     if mode == "dense":
         n = len(pipeline.dense_coords(H, W, PS, 112))
@@ -154,6 +155,31 @@ def test_a_thread_started_before_the_profiler_records_every_span(engine, slide, 
         assert [s.attrs["bytes"] for s in idx] == [4 * 5 * 2, 4 * 5 * 2 * 2]  # sidx, origin
     (readback,) = [s for s in got if s.name == "predict.readback"]
     assert readback.attrs["bytes"] == (H // 16) * (W // 16)
+
+
+@pytest.mark.parametrize("mode", ["dense", "fcn"])
+def test_the_staging_ring_serves_the_same_map_and_counts_its_chunks(engine, slide, mode,
+                                                                     monkeypatch):
+    """The ring's copy loop on plain CPU slots (the card's path, where a
+    pageable slide goes to a card): the request's ``ingest.upload`` span
+    counts the chunks, and the map is the direct path's."""
+    want, _ = engine.predict_slide(slide, mode=mode)
+    # libcuda's copy, record and wait, stood in for on the CPU
+    htod = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_size_t,
+                            ctypes.c_void_p)(lambda d, s, n, stream: ctypes.memmove(d, s, n) and 0)
+    record = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)(lambda e, s: 0)
+    sync = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p)(lambda e: 0)
+    api = tuple(ctypes.cast(f, ctypes.c_void_p).value for f in (htod, record, sync))
+    slot = 4096  # 10 rows of 390 bytes a chunk
+    monkeypatch.setattr(ingest, "_staging_ring",
+                        lambda t, device: ingest._Ring(device, 2, slot, api=api))
+    last = _last_id()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got, _ = engine.predict_slide(slide, mode=mode)
+    (upload,) = [s for s in _new_spans(last) if s.name == "ingest.upload"]
+    assert upload.attrs["staged"] == len(ingest.chunk_plan((H, W, 3), slot)) == 16
+    assert upload.attrs["bytes"] == H * W * 3
+    np.testing.assert_array_equal(got, want)
 
 
 def test_trace_writes_the_program_spans_in_the_profilers_window(engine, slide, tmp_path):
