@@ -247,7 +247,11 @@ bf16 Dh 64), and timed at Dh 16, 32 and 128 too; K3, K4 and K5 are also
 held at (64, 6, 196, 64), the ViT-S/16 training program's step; and K1's
 multi-slide uint8 mode bit-equal to its plain version at the training
 bank's shape and at the training program's: 64 windows of 224 and 352 px
-on the layer-2 bank, 64 of 224 px on the layer-1 and layer-4 banks.
+on the layer-2 bank, 64 of 224 px on the layer-1 and layer-4 banks; and K7
+(the SwiGLU gate of UNI2-h's gated MLP) against its plain version at the
+gate of one 256-patch batch, (67,840, 8,192) bf16, a ragged row count and
+f32: the largest difference in bf16 ulps, timed beside its byte bound, the
+plain version and stock PyTorch's two passes (``silu``, then ``mul``).
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
 last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -613,6 +617,56 @@ def check_k3(device):
         else "bytes",
         "library_ms": library_ms, "tflops": flops / ms / 1e9, "share_of_bound": bound_ms / ms,
         "lse_ms": lse_ms, "qkv_views_lse_ms": qkv_lse_ms, "by_tokens": seq,
+    }
+
+
+# K7 at the gate of one UNI2-h batch: 256 patches × 265 tokens, 2 × 4096 wide
+K7_SHAPES = [(67_840, 4096, torch.bfloat16), (261, 4096, torch.bfloat16),
+             (1_000, 4096, torch.float32)]
+
+
+def check_k7(device):
+    """K7 against its plain version: the largest |difference| in units of
+    the output's last place (bf16: 2^-7 of the value's power of two), which
+    must be at most 1 (the same float32 sequence, but the libm exp), timed
+    at the main shape beside its byte bound, the plain version and stock
+    PyTorch's two bf16 passes."""
+    from deephisto_tpu_torch.ops import swiglu, swiglu_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    worst = 0.0
+    for rows, h, dt in K7_SHAPES:
+        u = (torch.randn((rows, 2 * h), device=device, generator=gen) * 3).to(dt)
+        got = swiglu(u)
+        torch.cuda.synchronize()
+        want = swiglu_ref(u)
+        ulp = torch.finfo(dt).eps * torch.exp2(torch.floor(torch.log2(want.float().abs()
+                                                                      .clamp(min=1e-30))))
+        ulps = float(((got.float() - want.float()).abs() / ulp).max())
+        equal = float((got == want).float().mean())
+        print(f"K7 swiglu ({rows}, {2 * h}) {str(dt)[6:]}: max |diff| {ulps} ulps, "
+              f"{equal:.6f} of the outputs bit-equal (tolerance 1 ulp)")
+        if not ulps <= 1.0:
+            raise AssertionError(f"K7 differs from its plain version at ({rows}, {2 * h}) {dt}")
+        worst = max(worst, ulps)
+        del u, got, want, ulp
+    rows, h, dt = K7_SHAPES[0]
+    u = (torch.randn((rows, 2 * h), device=device, generator=gen) * 3).to(dt)
+    a, b = u[:, :h], u[:, h:]
+    ms = cuda_ms(lambda i: swiglu(u), 20)
+    plain_ms = cuda_ms(lambda i: swiglu_ref(u), 3)
+    library_ms = cuda_ms(lambda i: torch.nn.functional.silu(a) * b, 20)
+    nbytes = 3 * rows * h * 2
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K7 at ({rows}, {2 * h}) bf16: {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s, "
+          f"{bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"silu then mul in bf16 {library_ms:.4f} ms")
+    del u, a, b
+    return {
+        "name": "swiglu", "route": "cuda", "source": "deephisto_tpu_torch/csrc/swiglu.cu",
+        "replaces": "none (no gated MLP in deephisto_tpu; UNI2-h's SwiGLUPacked gate)",
+        "max_ulps": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": library_ms, "share_of_bound": bound_ms / ms,
     }
 
 
@@ -3851,7 +3905,7 @@ def main() -> int:
     slide = seeded_slide(device)
     dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
     kernels = [check_k1(slide, dense), check_k1_multi(device), check_k1_int8(slide, dense, device),
-               check_k2(dense, device), check_k3(device), *check_k45(device)]
+               check_k2(dense, device), check_k3(device), *check_k45(device), check_k7(device)]
     for k in kernels:
         k["launches"] = 0
         k["launches_by_path"] = {}

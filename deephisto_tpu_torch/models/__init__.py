@@ -1,5 +1,6 @@
-"""Model zoo: the ResNet and ViT families, the ViT's folded-stem serving
-form, int8 PTQ of both families, and the flax ↔ torch weight bridge."""
+"""Model zoo: the ResNet and ViT families (UNI2-h among the ViTs), the ViT's
+folded-stem serving form, int8 PTQ of both families, and the flax ↔ torch
+weight bridge."""
 
 from .convert import (
     flax_folded_stem_to_torch,
@@ -21,7 +22,7 @@ from .resnet import (
     ResNet101,
     build_resnet,
 )
-from .vit import FoldedStemViT, ViT, ViTBase, ViTSmall, fold_vit_stem
+from .vit import UNI2h, FoldedStemViT, RegViT, ViT, ViTBase, ViTSmall, fold_vit_stem
 
 
 def quantize_model(model, calib_batches):
@@ -36,6 +37,7 @@ __all__ = [
     "FoldedStemViT",
     "QuantizedResNet",
     "QuantizedViT",
+    "RegViT",
     "Bottleneck",
     "ResNet",
     "ResNet18",
@@ -57,4 +59,5 @@ __all__ = [
     "flax_vit_qvariables_to_torch",
     "flax_vit_to_torch",
     "torch_to_flax",
+    "UNI2h",
 ]

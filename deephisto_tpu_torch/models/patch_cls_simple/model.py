@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..resnet import BasicBlock, Bottleneck, ResNet, build_resnet, load_torchvision_weights
-from ..vit import ViT
+from ..vit import UNI2h, ViT
 
 
 def get_model(
@@ -35,7 +35,13 @@ def get_model(
     arch="vit": ViT-S width (dim 384, 6 heads) with ``depth`` transformer
     blocks (1..12), ``patch``-px tokens and stem "linear" ("imagenet" maps
     to it), "conv" or "conv_gn"; its token count is that of an
-    ``input_size``² input (the JAX ``init_model``'s ``input_size``)."""
+    ``input_size``² input (the JAX ``init_model``'s ``input_size``).
+    arch="uni2h": the UNI2-h ViT at its published widths
+    (:class:`~..vit.RegViT`: patch 14, dim 1536, 24 heads, SwiGLU 8192 →
+    4096, LayerScale, a class and 8 register tokens) with ``depth`` blocks
+    (1..24; 24 as published), stem "imagenet" (its patch conv), on an
+    ``input_size``² input (224 as published; a multiple of 14). A ``patch``
+    or ``width`` argument does not apply to it."""
     if arch == "vit":
         if not 1 <= depth <= 12:
             raise ValueError(
@@ -53,8 +59,18 @@ def get_model(
             raise ValueError("arch='vit' takes RGB input only")
         return ViT(num_classes=n_classes, depth=depth, dtype=dtype, patch=patch,
                    stem=vit_stem, img_size=input_size)
+    if arch == "uni2h":
+        if not 1 <= depth <= 24:
+            raise ValueError(f"arch='uni2h' supports depth 1..24 blocks (24 as published), "
+                             f"got {depth}; set model.depth explicitly for UNI2-h configs")
+        if stem not in ("imagenet", "linear"):
+            raise ValueError(f"arch='uni2h' has its own patch conv (stem 'imagenet'), got "
+                             f"{stem!r}")
+        if in_channels != 3:
+            raise ValueError("arch='uni2h' takes RGB input only")
+        return UNI2h(num_classes=n_classes, depth=depth, dtype=dtype, img_size=input_size)
     if arch != "resnet":
-        raise ValueError(f"arch must be 'resnet' or 'vit', got {arch!r}")
+        raise ValueError(f"arch must be 'resnet', 'vit' or 'uni2h', got {arch!r}")
     return build_resnet(n_classes, depth=depth, dtype=dtype, stem=stem, width=width,
                         in_channels=in_channels)
 

@@ -47,7 +47,7 @@ from ..ops.conv_int8 import conv_f32, conv_int8_block, quant_to
 from . import vit as vit_module
 from .quantize import QConv, fold_conv_bn
 from .resnet import same_pads
-from .vit import ViT, _attention
+from .vit import RegViT, ViT, _attention
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default, the ViT's blocks
 GN_EPS = 1e-6  # flax nn.GroupNorm's default, the conv_gn stem
@@ -176,10 +176,24 @@ def _float_forward(model: ViT, x, record: dict | None = None) -> torch.Tensor:
     return F.linear(x.mean(dim=1), f32(model.head.weight), f32(model.head.bias))
 
 
+def _refuse_unknown(model: ViT) -> None:
+    """Raise for a ViT whose parts this PTQ has no int8 form of (the UNI2-h
+    :class:`~.vit.RegViT`), rather than quantize a model it does not
+    compute."""
+    if isinstance(model, RegViT):
+        raise ValueError(
+            "quantize_vit knows the GELU-MLP ViT only: it has no int8 form of the gated "
+            "(SwiGLU) MLP, LayerScale, or the class and register tokens of this "
+            f"{type(model).__name__}; serve it in bf16 (int8=False)"
+        )
+
+
 @torch.no_grad()
 def calibrate_vit(model: ViT, batches) -> dict[str, float]:
     """{matmul name: input absmax} over calibration batches ((B, H, W, 3)
-    float arrays in [0, 1]; quantize_vit.py:182), on the model's device."""
+    float arrays in [0, 1]; quantize_vit.py:182), on the model's device.
+    Refuses a ViT it cannot quantize (:class:`~.vit.RegViT`)."""
+    _refuse_unknown(model)
     dev = model.pos_embed.device
     absmax: dict[str, float] = {}
     for batch in batches:
@@ -350,7 +364,9 @@ def _qweights(w: torch.Tensor, bias: torch.Tensor, absmax: float, conv: bool) ->
 def quantize_vit(model: ViT, calib_batches) -> QuantizedViT:
     """Post-training-quantize a float :class:`~.vit.ViT` (quantize_vit.py:
     297): ``calib_batches`` is an iterable of (B, H, W, 3) float arrays in
-    [0, 1]. Returns the :class:`QuantizedViT`, on the model's device."""
+    [0, 1]. Returns the :class:`QuantizedViT`, on the model's device.
+    Refuses a gated-MLP, LayerScale or register-token ViT (ValueError)."""
+    _refuse_unknown(model)
     absmax = calibrate_vit(model, calib_batches)
 
     def f32(t):

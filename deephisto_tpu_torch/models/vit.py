@@ -26,6 +26,26 @@ Attention is differentiable on both routes: K3's backward is kernels K4 and
 K5 (``ops.attention.flash_attention`` is a ``torch.autograd.Function``), the
 plain branch is plain ops. ``pos_embed`` fixes the token count to that of
 ``img_size``, as flax fixes it to the init input's.
+
+:class:`RegViT` is the UNI2-h pathology foundation ViT (Chen et al.,
+arXiv:2308.15474; the model card's ``timm_kwargs``): a ViT with a class
+token and register tokens, LayerScale and a gated (SwiGLU) MLP, its blocks
+:class:`GatedBlock`. It has no counterpart in the JAX package. Its
+parameters map one to one, by a rename and with the same shapes, onto
+timm's ``VisionTransformer`` of the published weights:
+
+    embed.{weight,bias}              patch_embed.proj.{weight,bias}
+    cls_token, reg_token, pos_embed  cls_token, reg_token, pos_embed
+    block{i}.ln1.{weight,bias}       blocks.{i}.norm1.{weight,bias}
+    block{i}.attn.qkv.{weight,bias}  blocks.{i}.attn.qkv.{weight,bias}
+    block{i}.attn.proj.{weight,bias} blocks.{i}.attn.proj.{weight,bias}
+    block{i}.ls1                     blocks.{i}.ls1.gamma
+    block{i}.ln2.{weight,bias}       blocks.{i}.norm2.{weight,bias}
+    block{i}.fc1.{weight,bias}       blocks.{i}.mlp.fc1.{weight,bias}
+    block{i}.fc2.{weight,bias}       blocks.{i}.mlp.fc2.{weight,bias}
+    block{i}.ls2                     blocks.{i}.ls2.gamma
+    ln.{weight,bias}                 norm.{weight,bias}
+    head.{weight,bias}               (none: UNI2-h ships no head; a linear probe)
 """
 
 from __future__ import annotations
@@ -38,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_plain, flash_attention_qkv
+from ..ops.swiglu import swiglu
 from .resnet import BatchNorm, SameConv2d, cast_param, same_pads
 
 # From this many tokens the port takes K3 on the card. The JAX model's
@@ -232,6 +253,112 @@ class ViT(nn.Module):
 
 ViTSmall = partial(ViT, dim=384, depth=6, heads=6)
 ViTBase = partial(ViT, dim=768, depth=12, heads=12)
+
+# ImageNet's channel statistics, the input normalisation of UNI2-h's card
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+LAYER_SCALE_INIT = 1e-5  # UNI2-h's init_values, where timm starts each γ
+
+
+class GatedBlock(nn.Module):
+    """UNI2-h's block (timm's ``Block`` with ``init_values`` and
+    ``SwiGLUPacked``): pre-norm, LayerScale on both residual branches and a
+    gated MLP whose ``fc1`` packs the gate and the value (2·``hidden``
+    outputs, the gate first)::
+
+        x = x + ls1 ⊙ attn(ln1(x))
+        x = x + ls2 ⊙ fc2(silu(u[:, :hidden]) ⊙ u[:, hidden:]),  u = fc1(ln2(x))
+
+    Each LayerScale and its residual add are one ``torch.addcmul`` (float32
+    inside, one rounding), the same pass as the plain ViT's residual add; γ
+    stays a parameter of its own, so the weights keep timm's tensors. The
+    gate is kernel K7 on the card (``ops.swiglu.swiglu``), its plain version
+    on the CPU."""
+
+    def __init__(self, dim: int, heads: int, hidden: int):
+        super().__init__()
+        self.ln1 = _LayerNorm(dim)
+        self.attn = MHA(dim, heads)
+        self.ls1 = nn.Parameter(torch.full((dim,), LAYER_SCALE_INIT))
+        self.ln2 = _LayerNorm(dim)
+        self.fc1 = _Dense(dim, 2 * hidden)
+        self.fc2 = _Dense(hidden, dim)
+        self.ls2 = nn.Parameter(torch.full((dim,), LAYER_SCALE_INIT))
+
+    def forward(self, x):
+        x = torch.addcmul(x, cast_param(self, "ls1", x.dtype), self.attn(self.ln1(x)))
+        y = swiglu(self.fc1(self.ln2(x)))
+        return torch.addcmul(x, cast_param(self, "ls2", x.dtype), self.fc2(y))
+
+
+class RegViT(ViT):
+    """The UNI2-h ViT (timm's ``VisionTransformer`` with ``reg_tokens``,
+    ``no_embed_class``, ``init_values`` and ``SwiGLUPacked``; the names map
+    onto timm's as the module's docstring lists) with a linear head on the
+    class token. A :class:`ViT`, so the predicts and the engine take it on
+    the ViT's path.
+
+    The call takes (B, H, W, 3) NHWC images in [0, 1], as :class:`ViT`:
+    ImageNet's normalisation in float32, then the patch×patch stride-patch
+    conv (``img_size`` a multiple of ``patch``: no padding), ``pos_embed`` on
+    the patch tokens only, then ``[cls, reg × reg_tokens, patches]``, the
+    :class:`GatedBlock` stack, the final LayerNorm of the class token and
+    the float32 head. ``n_tokens`` counts all the tokens a patch carries."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        patch: int = 14,
+        dim: int = 1536,
+        depth: int = 24,
+        heads: int = 24,
+        mlp_hidden: int = 4096,
+        reg_tokens: int = 8,
+        dtype: torch.dtype = torch.bfloat16,
+        img_size: int = 224,
+    ):
+        nn.Module.__init__(self)  # ViT.__init__ builds GELU blocks; its attributes are set here
+        if img_size % patch:
+            raise ValueError(f"the patch embedding takes an input that is a whole number of "
+                             f"{patch}-px patches, got {img_size}")
+        self.num_classes, self.patch, self.dim = num_classes, patch, dim
+        self.depth, self.heads, self.dtype, self.stem = depth, heads, dtype, "linear"
+        self.embed = _SameConvBias(3, dim, patch, patch)
+        self.n_patches = (img_size // patch) ** 2
+        self.n_tokens = 1 + reg_tokens + self.n_patches
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.reg_token = nn.Parameter(torch.zeros(1, reg_tokens, dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, self.n_patches, dim))
+        for i in range(depth):
+            self.add_module(f"block{i}", GatedBlock(dim, heads, mlp_hidden))
+        self.ln = _LayerNorm(dim)
+        self.head = nn.Linear(dim, num_classes)
+        self.register_buffer("pixel_mean", torch.tensor(IMAGENET_MEAN), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(IMAGENET_STD), persistent=False)
+        self.embed.to(memory_format=torch.channels_last)
+
+    def embed_tokens(self, x, tokens: bool = False):
+        """The (B, 1 + reg_tokens + patches, dim) sequence the blocks take:
+        of (B, H, W, 3) images, or with ``tokens=True`` of patch embeddings
+        (B, gh, gw, dim)."""
+        if tokens:
+            x = x.to(self.dtype)
+        else:
+            x = ((x - self.pixel_mean) / self.pixel_std).to(self.dtype)
+            x = self.embed(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        b, gh, gw, d = x.shape
+        x = x.reshape(b, gh * gw, d) + cast_param(self, "pos_embed", self.dtype)
+        lead = torch.cat([cast_param(self, "cls_token", self.dtype),
+                          cast_param(self, "reg_token", self.dtype)], dim=1)
+        return torch.cat([lead.expand(b, -1, -1), x], dim=1)
+
+    def classify(self, x):
+        """The final LayerNorm of the class token and the f32 head."""
+        return self.head(self.ln(x[:, 0]).float())
+
+
+# the published UNI2-h (MahmoodLab/UNI2-h): 681,394,176 parameters without a head
+UNI2h = partial(RegViT, patch=14, dim=1536, depth=24, heads=24, mlp_hidden=4096, reg_tokens=8)
 
 
 class FoldedStemViT(nn.Module):

@@ -2,8 +2,8 @@
 (Gumbel-max and Gumbel-top-k, torch ops), patch gather (kernel K1, with its multi-slide uint8 mode and
 its int8 mode, the int8 model's input quantize and stem layout fused in),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
-and the int8 convolution with its epilogue, the ResNet block's among its
-modes (kernel K6)."""
+the int8 convolution with its epilogue, the ResNet block's among its
+modes (kernel K6), and the gated MLP's SwiGLU gate (kernel K7)."""
 
 from .attention import (
     attention_plain,
@@ -52,6 +52,7 @@ from .stitch import (
     scatter_add_map_exact,
     scatter_add_map_ref,
 )
+from .swiglu import swiglu, swiglu_bwd_ref, swiglu_ref
 
 __all__ = [
     "accumulate_coverage",
@@ -86,6 +87,9 @@ __all__ = [
     "scatter_add_map_exact",
     "scatter_add_map_ref",
     "s2d_pack4",
+    "swiglu",
+    "swiglu_bwd_ref",
+    "swiglu_ref",
     "top_k",
     "u8_table",
     "uniform_int",

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.resnet import cast_param
-from ..models.vit import _Dense
+from ..models.vit import GatedBlock, _Dense
 from ._comm import copy_to_group, gather_dim, reduce_from_group
 from .mesh import MODEL_AXIS, axis_size
 
@@ -124,6 +124,9 @@ def place_vit_tensor_parallel(state, mesh):
             "the model has no fc1 layers — tensor parallelism supports the "
             "ViT family (models/vit.py) only"
         )
+    if any(isinstance(b, GatedBlock) for b in blocks):
+        raise ValueError("tensor parallelism shards the GELU MLP; a gated block's fc1 packs "
+                         "the gate and the value, which a cut of its rows would split apart")
     hidden = [b.fc1.out_features for b in blocks]
     if any(h % m for h in hidden):
         raise ValueError(f"MLP hidden width {hidden[0]} not divisible by model axis {m}")

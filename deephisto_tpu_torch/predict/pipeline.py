@@ -93,6 +93,14 @@ def edge_pad(image: torch.Tensor, pad_y, pad_x) -> torch.Tensor:
     return image.index_select(0, rows).index_select(1, cols)
 
 
+def model_tokens(model) -> dict:
+    """``{"tokens": n}``, the tokens a patch carries through a
+    transformer's blocks (``n_tokens``: 784 for ViT-S/8, 265 for UNI2-h);
+    empty for a model without tokens."""
+    n = getattr(model, "n_tokens", None)
+    return {"tokens": int(n)} if n else {}
+
+
 def model_device(model) -> torch.device:
     """The device of a model's first parameter, or of its first buffer (the
     int8 ResNet holds buffers only)."""
@@ -263,7 +271,7 @@ def predict_full_fused(
         step = BatchPredictor(image, packed, model, ps, d, bs, device, softmax)
         score_map = torch.zeros((h // d, w // d, n_classes), dtype=torch.float32, device=device)
     with torch.inference_mode():
-        with span("predict.enqueue", batches=n_b):
+        with span("predict.enqueue", batches=n_b, **model_tokens(model)):
             for b in range(n_b):
                 real = min(bs, n - b * bs) - lanes.start  # this rank's real lanes
                 if real > 0:
