@@ -206,7 +206,8 @@ of JAX or of the JAX package. Phases, any failure exits non-zero:
     phase 11's int8 ResNet-18 (s2d) through ``export_classifier`` at batch
     256 × 224² on the card, each loaded from its bytes and fed one
     K1-gathered batch of the 16384² slide: the int8 program bit-equal to
-    the live model, the bf16 ones at phases 5 and 8's argmax limits, K3
+    the live model with grad on (the route export records, no K8), the
+    bf16 ones at phases 5 and 8's argmax limits, K3
     launched 6 times a batch by the loaded ViT and K6 20 times by the
     loaded int8 program (the registered ops), each as often as the live
     model launches it; loaded and live patches/s (best of 3, in turns) and
@@ -251,7 +252,13 @@ on the layer-2 bank, 64 of 224 px on the layer-1 and layer-4 banks; and K7
 (the SwiGLU gate of UNI2-h's gated MLP) against its plain version at the
 gate of one 256-patch batch, (67,840, 8,192) bf16, a ragged row count and
 f32: the largest difference in bf16 ulps, timed beside its byte bound, the
-plain version and stock PyTorch's two passes (``silu``, then ``mul``).
+plain version and stock PyTorch's two passes (``silu``, then ``mul``); and
+K8 (a ViT's residual add, with LayerScale's γ, and the LayerNorm after it)
+against its plain version at a ViT-S/8 batch's stream (200,704, 384) and a
+UNI2-h batch's (67,840, 1536), bf16 and f32, with and without γ: s and y in
+ulps of the dtype and the share equal, timed at both bf16 shapes beside its
+byte bound, the plain version (today's add, cast, LayerNorm and cast back)
+and ``F.layer_norm`` on bf16 alone.
 
 It prints the card line, then one ``{"kernels": [...]}`` line, then as its
 last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -667,6 +674,125 @@ def check_k7(device):
         "replaces": "none (no gated MLP in deephisto_tpu; UNI2-h's SwiGLUPacked gate)",
         "max_ulps": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": library_ms, "share_of_bound": bound_ms / ms,
+    }
+
+
+# K8 at the residual stream of one ViT-S/8 batch (256 patches × 784 tokens,
+# dim 384; the plain ViT's add) and one UNI2-h batch (256 × 265, dim 1536;
+# LayerScale's addcmul)
+K8_SHAPES = [(200_704, 384, False), (67_840, 1536, True)]
+K8_EPS = 1e-6
+
+
+def k8_inputs(rows, dim, dtype, gamma, gen, device):
+    x = (torch.randn((rows, dim), device=device, generator=gen) * 2 + 0.5).to(dtype)
+    r = torch.randn((rows, dim), device=device, generator=gen).to(dtype)
+    w = 1 + 0.1 * torch.randn(dim, device=device, generator=gen)
+    b = 0.02 * torch.randn(dim, device=device, generator=gen)
+    ls = (0.5 + 0.1 * torch.randn(dim, device=device, generator=gen)).to(dtype) if gamma else None
+    return x, r, w, b, ls
+
+
+def ulps(got, want, scale=None) -> torch.Tensor:
+    """|got − want| in units of the last place of ``want``'s dtype at the
+    power of two of ``scale`` (by default of ``want`` itself)."""
+    scale = want if scale is None else scale
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(
+        torch.floor(torch.log2(scale.float().abs().clamp(min=1e-30))))
+    return (got.float() - want.float()).abs() / ulp
+
+
+def norm_terms(s, w, b, eps) -> torch.Tensor:
+    """|w|·(|s| + |μ|)/σ + |b| for each element, in float64: the size of the
+    terms whose sum is the LayerNorm's output w·(s − μ)/σ + b. Where they
+    cancel, the output is near 0 and its own last place far below theirs;
+    an ulp of μ or σ moves it by an ulp of the terms, not of itself."""
+    s64 = s.double()
+    mu = s64.mean(-1, keepdim=True)
+    sigma = torch.sqrt(((s64 - mu) ** 2).mean(-1, keepdim=True) + eps)
+    return w.double().abs() * (s64.abs() + mu.abs()) / sigma + b.double().abs()
+
+
+# K8's y against its plain version's: at most this many ulps of the terms'
+# scale (``norm_terms``). bf16 rounds once after float32 statistics that
+# differ from ATen's by an ulp or so, so one ulp; float32 carries those ulps
+# of μ and σ into y
+K8_Y_ULPS = {torch.bfloat16: 1.0, torch.float32: 8.0}
+
+
+def k8_diffs(got, want, x, w, b, dt) -> dict:
+    """The largest error of K8's s (in its own ulps) and y (in ulps of its
+    terms), and the shares of s and y equal to the plain version's."""
+    s = want[0] if len(want) == 2 else x
+    out = {"y_ulps": float(ulps(got[-1], want[-1], norm_terms(s, w, b, K8_EPS)).max()),
+           "y_equal": float((got[-1] == want[-1]).float().mean())}
+    if len(want) == 2:
+        out |= {"s_ulps": float(ulps(got[0], want[0]).max()),
+                "s_equal": float((got[0] == want[0]).float().mean())}
+    return out
+
+
+def check_k8(device):
+    """K8 against its plain version at both ViT cells' streams, bf16 and f32,
+    with and without γ, and its LayerNorm alone: s within one ulp and y
+    within ``K8_Y_ULPS`` ulps of its terms (``norm_terms``); in bf16 both
+    equal on at least 99.9 % of elements (in float32 about half the y
+    differ: ATen's LayerNorm sums its statistics in another order). Timed
+    at both bf16 shapes beside its byte bound (x and r read, s and y written
+    once), the plain version and ``F.layer_norm`` on bf16 alone."""
+    from deephisto_tpu_torch.ops import add_layernorm, add_layernorm_ref, layernorm, layernorm_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    times = []
+    for rows, dim, gamma in K8_SHAPES:
+        x, r, w, b, ls = k8_inputs(rows, dim, torch.bfloat16, gamma, gen, device)
+        wb, bb = w.bfloat16(), b.bfloat16()
+        ms = cuda_ms(lambda i: add_layernorm(x, r, w, b, K8_EPS, ls), 20)
+        plain_ms = cuda_ms(lambda i: add_layernorm_ref(x, r, w, b, K8_EPS, ls), 10)
+        library_ms = cuda_ms(
+            lambda i: torch.nn.functional.layer_norm(x, (dim,), wb, bb, K8_EPS), 20)
+        nbytes = 4 * rows * dim * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"K8 at ({rows}, {dim}) bf16 {'addcmul' if gamma else 'add'}: {ms:.4f} ms = "
+              f"{nbytes / ms / 1e6:.1f} GB/s, {bound_ms / ms:.1%} of its bound "
+              f"{bound_ms:.4f} ms; plain {plain_ms:.4f} ms; F.layer_norm on bf16 alone "
+              f"{library_ms:.4f} ms")
+        times.append({"shape": [rows, dim], "gamma": gamma, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "library_ms": library_ms,
+                      "share_of_bound": bound_ms / ms})
+        del x, r
+    worst, faults = {}, []
+    for rows, dim, _ in K8_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            for gamma in (False, True, None):  # None: the LayerNorm alone
+                x, r, w, b, ls = k8_inputs(rows, dim, dt, bool(gamma), gen, device)
+                if gamma is None:
+                    got = (layernorm(x, w, b, K8_EPS),)
+                    want = (layernorm_ref(x, w, b, K8_EPS),)
+                else:
+                    got = add_layernorm(x, r, w, b, K8_EPS, ls)
+                    want = add_layernorm_ref(x, r, w, b, K8_EPS, ls)
+                torch.cuda.synchronize()
+                d = k8_diffs(got, want, x, w, b, dt)
+                kind = {None: "layernorm", False: "add", True: "addcmul"}[gamma]
+                print(f"K8 {kind} ({rows}, {dim}) {str(dt)[6:]}: " + json.dumps(d))
+                for key, v in d.items():
+                    name = f"{key}.{str(dt)[6:]}"
+                    worst[name] = (min if key.endswith("equal") else max)(worst.get(name, v), v)
+                if d.get("s_ulps", 0.0) > 1.0 or d["y_ulps"] > K8_Y_ULPS[dt] or (
+                        dt == torch.bfloat16 and min(d.get("s_equal", 1.0), d["y_equal"]) < 0.999):
+                    faults.append(f"{kind} at ({rows}, {dim}) {dt}")
+                del x, r, got, want
+    if faults:
+        raise AssertionError("K8 differs from its plain version: " + ", ".join(faults))
+    return {
+        "name": "layernorm", "route": "cuda", "source": "deephisto_tpu_torch/csrc/layernorm.cu",
+        "replaces": "none (XLA fused the JAX ViT's LayerNorm, B9); a residual add with "
+                    "LayerScale and the LayerNorm after it",
+        "errors": worst, "ms": times[0]["ms"], "plain_ms": times[0]["plain_ms"],
+        "bound_ms": times[0]["bound_ms"], "bound_by": "bytes",
+        "library_ms": times[0]["library_ms"], "share_of_bound": times[0]["share_of_bound"],
+        "by_shape": times,
     }
 
 
@@ -2016,7 +2142,8 @@ HOST_LOOP_AGREE = 0.999
 # the plain versions of the kernels, as ops modules name them
 PLAIN_VERSIONS = (("gather", "gather_normalize_ref"), ("gather", "gather_patches_multi"),
                   ("gather", "gather_quantize_int8_ref"), ("stitch", "scatter_add_map_ref"),
-                  ("conv_int8", "conv_int8_ref"), ("conv_int8", "conv_int8_block_ref"))
+                  ("conv_int8", "conv_int8_ref"), ("conv_int8", "conv_int8_block_ref"),
+                  ("layernorm", "add_layernorm_ref"), ("layernorm", "layernorm_ref"))
 
 
 class PredictSpy:
@@ -3461,8 +3588,11 @@ def export_check(label, model, dtype, u8, kernel=None, per_batch=0) -> tuple[dic
     ``u8``: bit-equal (``label`` not in ``LT_AGREE``) or the argmax limit,
     ``kernel`` launched ``per_batch`` times a batch by both; with no
     ``kernel``, the program's graph holds no registered op of the port.
-    Both timed, best of LT_TIMED_RUNS in turns. Returns (row, the loaded
-    program's launches on the batch)."""
+    Export records K8's plain versions, so the program is held to the live
+    model with grad on, the route that launches no K8; the served route
+    (grad off: a ViT chains its blocks through K8) is reported beside it.
+    Both timed, best of LT_TIMED_RUNS in turns, the live model served.
+    Returns (row, the loaded program's launches on the batch)."""
     import io
 
     from deephisto_tpu_torch import _build
@@ -3478,16 +3608,17 @@ def export_check(label, model, dtype, u8, kernel=None, per_batch=0) -> tuple[dic
     loaded = load_classifier(data)
     load_s = time.perf_counter() - t0
 
-    def run(fn):
+    def run(fn, grad=False):
         torch.cuda.synchronize()
         _build.reset_launches()
-        with torch.no_grad():
-            out = fn(u8)
+        with torch.set_grad_enabled(grad):
+            out = fn(u8).detach()
         torch.cuda.synchronize()
         return out, {k: v for k, v in _build.launches.items() if v}
 
     got, got_launches = run(loaded)
-    want, want_launches = run(live)
+    want, want_launches = run(live, grad=True)
+    served, _ = run(live)
     best = {"loaded": float("inf"), "live": float("inf")}
     for which in ("loaded", "live") * LT_TIMED_RUNS:
         fn = loaded if which == "loaded" else live
@@ -3502,15 +3633,18 @@ def export_check(label, model, dtype, u8, kernel=None, per_batch=0) -> tuple[dic
     row = {"artifact_bytes": len(data), "export_s": export_s, "load_s": load_s,
            "loaded_patches_per_s": BS / best["loaded"], "live_patches_per_s": BS / best["live"],
            "argmax_agree": agree, "max_score_diff": diff, "bit_equal": bool(torch.equal(got, want)),
-           "graph_ops": ops}
+           "graph_ops": ops, "served_argmax_agree": float((got.argmax(1) == served.argmax(1))
+                                                         .float().mean()),
+           "served_max_score_diff": float((got.float() - served.float()).abs().max())}
     if kernel:
         row["kernel_launches"] = {"loaded": got_launches.get(kernel, 0),
                                   "live": want_launches.get(kernel, 0)}
     print(f"phase 23 export {label}: {len(data)} bytes, exported in {export_s:.2f} s, loaded in "
           f"{load_s:.2f} s; loaded {row['loaded_patches_per_s']:.1f} vs live "
           f"{row['live_patches_per_s']:.1f} patches/s (best of {LT_TIMED_RUNS}, in turns); "
-          f"argmax agreement {agree}, max |score diff| {diff}, bit-equal {row['bit_equal']}; "
-          f"the port's ops in the graph {ops}"
+          f"argmax agreement {agree}, max |score diff| {diff}, bit-equal {row['bit_equal']} "
+          f"(with the served route {row['served_argmax_agree']}, "
+          f"{row['served_max_score_diff']}); the port's ops in the graph {ops}"
           + (f"; {kernel} launches a batch {row['kernel_launches']}" if kernel else ""))
     if label in LT_AGREE:
         if agree < LT_AGREE[label]:
@@ -3905,7 +4039,8 @@ def main() -> int:
     slide = seeded_slide(device)
     dense = torch.from_numpy(dense_coords(MAIN_SIDE, MAIN_SIDE, PS, STRIDE))
     kernels = [check_k1(slide, dense), check_k1_multi(device), check_k1_int8(slide, dense, device),
-               check_k2(dense, device), check_k3(device), *check_k45(device), check_k7(device)]
+               check_k2(dense, device), check_k3(device), *check_k45(device), check_k7(device),
+               check_k8(device)]
     for k in kernels:
         k["launches"] = 0
         k["launches_by_path"] = {}

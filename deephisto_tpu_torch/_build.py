@@ -29,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "deephisto_tpu_torch"
-SOURCES = ("gather", "stitch", "attention", "attention_bwd", "conv_int8", "swiglu")
+SOURCES = ("gather", "stitch", "attention", "attention_bwd", "conv_int8", "swiglu", "layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -27,6 +27,15 @@ K5 (``ops.attention.flash_attention`` is a ``torch.autograd.Function``), the
 plain branch is plain ops. ``pos_embed`` fixes the token count to that of
 ``img_size``, as flax fixes it to the init input's.
 
+With grad off (the predicts, the engine, eval steps, export) ``ViT.forward``
+chains its blocks through kernel K8 (``ops.layernorm``): each residual add,
+with its LayerScale, and the LayerNorm after it are one pass, so the
+residual stream stays in the model dtype; each block's ``chain`` takes the
+stream and its normalised copy and hands both on. On the CPU and under
+``torch.export`` K8's plain versions run, today's ops in today's order. With
+grad on the blocks' ``forward`` runs, as the training, pipeline and tensor-
+parallel steps call it.
+
 :class:`RegViT` is the UNI2-h pathology foundation ViT (Chen et al.,
 arXiv:2308.15474; the model card's ``timm_kwargs``): a ViT with a class
 token and register tokens, LayerScale and a gated (SwiGLU) MLP, its blocks
@@ -58,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_plain, flash_attention_qkv
+from ..ops.layernorm import add_layernorm, layernorm
 from ..ops.swiglu import swiglu
 from .resnet import BatchNorm, SameConv2d, cast_param, same_pads
 
@@ -115,6 +125,16 @@ class _LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+def _norm(norm: _LayerNorm, x):
+    """``norm(x)`` through K8's LayerNorm alone."""
+    return layernorm(x, norm.weight, norm.bias, norm.eps)
+
+
+def _add_norm(norm: _LayerNorm, x, r, gamma=None):
+    """``(s, norm(s))`` for ``s = x + r`` (``x + gamma⊙r``), through K8."""
+    return add_layernorm(x, r, norm.weight, norm.bias, norm.eps, gamma)
+
+
 class _GroupNorm(nn.GroupNorm):
     """flax ``nn.GroupNorm`` over channels-last groups of an NCHW view: eps
     1e-6, float32 statistics, the result in the input dtype."""
@@ -163,6 +183,14 @@ class Block(nn.Module):
         x = x + self.attn(self.ln1(x))
         y = F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
         return x + self.fc2(y)
+
+    def chain(self, x, h, next_norm):
+        """The block on the stream ``x`` given ``h = ln1(x)``: returns the
+        new stream and ``next_norm`` of it, each residual add folded into
+        the LayerNorm after it (K8)."""
+        x, h = _add_norm(self.ln2, x, self.attn(h))
+        y = F.gelu(self.fc1(h), approximate="tanh")
+        return _add_norm(next_norm, x, self.fc2(y))
 
 
 class ViT(nn.Module):
@@ -236,19 +264,31 @@ class ViT(nn.Module):
         b, gh, gw, d = x.shape
         return x.reshape(b, gh * gw, d) + cast_param(self, "pos_embed", self.dtype)
 
+    def readout(self, h):
+        """The f32 head on the token mean of the final LayerNorm's output."""
+        return self.head(h.mean(dim=1).float())
+
     def classify(self, x):
         """The final LayerNorm, the token mean and the f32 head."""
-        return self.head(self.ln(x).mean(dim=1).float())
+        return self.readout(self.ln(x))
 
     def forward(self, x, tokens: bool = False):
         """x: (B, H, W, C) images, or with ``tokens=True`` stem features
         (B, gh, gw, dim) that enter at the transformer (the JAX model's
         serving entry for a stem run outside it). Returns (B, num_classes)
-        float32 logits."""
+        float32 logits. With grad on the blocks run one after the other;
+        with grad off they are chained through K8 (the module docstring)."""
         x = self.embed_tokens(x, tokens)
-        for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
-        return self.classify(x)
+        blocks = [getattr(self, f"block{i}") for i in range(self.depth)]
+        if torch.is_grad_enabled():
+            for block in blocks:
+                x = block(x)
+            return self.classify(x)
+        norms = [b.ln1 for b in blocks] + [self.ln]
+        h = _norm(norms[0], x)
+        for block, next_norm in zip(blocks, norms[1:]):
+            x, h = block.chain(x, h, next_norm)
+        return self.readout(h)
 
 
 ViTSmall = partial(ViT, dim=384, depth=6, heads=6)
@@ -289,6 +329,13 @@ class GatedBlock(nn.Module):
         x = torch.addcmul(x, cast_param(self, "ls1", x.dtype), self.attn(self.ln1(x)))
         y = swiglu(self.fc1(self.ln2(x)))
         return torch.addcmul(x, cast_param(self, "ls2", x.dtype), self.fc2(y))
+
+    def chain(self, x, h, next_norm):
+        """As :meth:`Block.chain`: each LayerScale and residual add folded
+        into the LayerNorm after it (K8)."""
+        x, h = _add_norm(self.ln2, x, self.attn(h), cast_param(self, "ls1", x.dtype))
+        y = swiglu(self.fc1(h))
+        return _add_norm(next_norm, x, self.fc2(y), cast_param(self, "ls2", x.dtype))
 
 
 class RegViT(ViT):
@@ -351,6 +398,11 @@ class RegViT(ViT):
         lead = torch.cat([cast_param(self, "cls_token", self.dtype),
                           cast_param(self, "reg_token", self.dtype)], dim=1)
         return torch.cat([lead.expand(b, -1, -1), x], dim=1)
+
+    def readout(self, h):
+        """The f32 head on the class token of the final LayerNorm's output
+        (row by row, so it equals :meth:`classify`'s norm of that row)."""
+        return self.head(h[:, 0].float())
 
     def classify(self, x):
         """The final LayerNorm of the class token and the f32 head."""

@@ -3,7 +3,8 @@
 its int8 mode, the int8 model's input quantize and stem layout fused in),
 stitch (kernel K2), attention (kernel K3) and its backward (kernels K4, K5),
 the int8 convolution with its epilogue, the ResNet block's among its
-modes (kernel K6), and the gated MLP's SwiGLU gate (kernel K7)."""
+modes (kernel K6), the gated MLP's SwiGLU gate (kernel K7), and a ViT's
+residual add with the LayerNorm after it (kernel K8)."""
 
 from .attention import (
     attention_plain,
@@ -35,6 +36,7 @@ from .gather import (
     u8_table,
     unpack_s2d8,
 )
+from .layernorm import add_layernorm, add_layernorm_ref, layernorm, layernorm_ref
 from .sampling import (
     categorical,
     coverage_cell_topk,
@@ -56,6 +58,8 @@ from .swiglu import swiglu, swiglu_bwd_ref, swiglu_ref
 
 __all__ = [
     "accumulate_coverage",
+    "add_layernorm",
+    "add_layernorm_ref",
     "attention_plain",
     "categorical",
     "coverage_cell_topk",
@@ -79,6 +83,8 @@ __all__ = [
     "gather_quantize_int8_ref",
     "gumbel",
     "gumbel_topk",
+    "layernorm",
+    "layernorm_ref",
     "log_weights",
     "map_footprint",
     "preprocess_batch",

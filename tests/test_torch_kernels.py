@@ -15,6 +15,8 @@ import torch
 from deephisto_tpu_torch import _build
 from deephisto_tpu_torch.models.resnet import same_pads
 from deephisto_tpu_torch.ops import (
+    add_layernorm,
+    add_layernorm_ref,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -24,6 +26,8 @@ from deephisto_tpu_torch.ops import (
     gather_normalize_ref,
     gather_quantize_int8,
     gather_quantize_int8_ref,
+    layernorm,
+    layernorm_ref,
     scatter_add_map,
     scatter_add_map_exact,
     scatter_add_map_ref,
@@ -778,3 +782,147 @@ def test_exported_program_launches_k3_and_k6_on_card(name):
         torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
     else:
         assert torch.equal(got, want)
+
+
+# ---- K8: a residual add (with LayerScale) and the LayerNorm after it --------
+
+# a ViT-S/8 batch (256 patches × 784 tokens × 384) and a UNI2-h batch
+# (256 × 265 × 1536)
+K8_SHAPES = [(200_704, 384), (67_840, 1536)]
+
+
+def _ulps(got, want, scale=None):
+    """|got − want| in units of the last place of ``want``'s dtype at the
+    power of two of ``scale`` (by default ``want``'s own)."""
+    scale = want if scale is None else scale
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(
+        torch.floor(torch.log2(scale.float().abs().clamp(min=1e-30))))
+    return (got.float() - want.float()).abs() / ulp
+
+
+def _norm_terms(s, w, b):
+    """|w|·(|s| + |μ|)/σ + |b|, in float64: the size of the terms whose sum
+    is the LayerNorm's output w·(s − μ)/σ + b. Where they cancel the
+    output's own last place lies far below theirs, and an ulp of μ or σ
+    moves it by an ulp of the terms."""
+    s = s.double()
+    mu = s.mean(-1, keepdim=True)
+    sigma = torch.sqrt(((s - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
+    return w.double().abs() * (s.abs() + mu.abs()) / sigma + b.double().abs()
+
+
+# y against the plain version's, in ulps of its terms: bf16 rounds once after
+# float32 statistics an ulp or so from ATen's; float32 carries those ulps
+K8_Y_ULPS = {torch.bfloat16: 1.0, torch.float32: 8.0}
+
+
+def _k8_inputs(rows, dim, dtype, gamma, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((rows, dim), device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    r = torch.randn((rows, dim), device="cuda", generator=gen).to(dtype)
+    w = 1 + 0.1 * torch.randn(dim, device="cuda", generator=gen)
+    b = 0.02 * torch.randn(dim, device="cuda", generator=gen)
+    ls = (0.5 + 0.1 * torch.randn(dim, device="cuda", generator=gen)).to(dtype) if gamma else None
+    return x, r, w, b, ls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gamma", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,dim", K8_SHAPES)
+def test_add_layernorm_kernel_matches_plain_on_card(rows, dim, dtype, gamma):
+    """K8 against its plain version (the add or addcmul, then the float32
+    LayerNorm and the cast back) at both ViT cells' shapes, and its
+    LayerNorm alone: s within one ulp of the dtype, y within
+    ``K8_Y_ULPS`` ulps of its terms' size; in bf16 each equal on at least
+    99.9 % of elements. The two differ only in the order of the sums of the
+    row's statistics, which in float32 moves about half the y by an ulp."""
+    _need_card()
+    x, r, w, b, ls = _k8_inputs(rows, dim, dtype, gamma, seed=rows + dim)
+    _build.reset_launches()
+    s, y = add_layernorm(x, r, w, b, 1e-6, ls)
+    alone = layernorm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert _build.launches.get("layernorm") == 2
+    want_s, want_y = add_layernorm_ref(x, r, w, b, 1e-6, ls)
+    assert s.dtype == y.dtype == dtype and s.shape == y.shape == x.shape
+    assert float(_ulps(s, want_s).max()) <= 1.0
+    for got, want, of in ((y, want_y, want_s), (alone, layernorm_ref(x, w, b, 1e-6), x)):
+        assert float(_ulps(got, want, _norm_terms(of, w, b)).max()) <= K8_Y_ULPS[dtype]
+    if dtype == torch.bfloat16:
+        for got, want in ((s, want_s), (y, want_y)):
+            assert float((got == want).float().mean()) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,dim", [(5, 8), (33, 40), (129, 1408), (7, 4096)])
+def test_add_layernorm_kernel_takes_any_width_on_card(rows, dim):
+    """Widths whose 16-byte vectors no power of two of lanes divides evenly
+    into a few a lane (40: 5 vectors, one lane; 1408: 176, 16 lanes × 11)
+    and the widest row a warp holds (4096 bf16: 32 lanes × 16), ragged row
+    counts: bf16 within one ulp of the plain version."""
+    _need_card()
+    x, r, w, b, ls = _k8_inputs(rows, dim, torch.bfloat16, True, seed=dim)
+    s, y = add_layernorm(x, r, w, b, 1e-6, ls)
+    torch.cuda.synchronize()
+    want_s, want_y = add_layernorm_ref(x, r, w, b, 1e-6, ls)
+    assert float(_ulps(s, want_s).max()) <= 1.0
+    assert float(_ulps(y, want_y, _norm_terms(want_s, w, b)).max()) <= 1.0
+
+
+def _loop_logits(model, x):
+    """The block loop (each block's ``forward``), as the grad-on route runs it."""
+    t = model.embed_tokens(x)
+    for i in range(model.depth):
+        t = getattr(model, f"block{i}")(t)
+    return model.classify(t)
+
+
+def _seeded_vit(model, seed):
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            std = 1.0 / p.shape[-1] ** 0.5 if p.ndim > 1 else 0.02
+            p.copy_(std * torch.randn(p.shape, generator=gen))
+            if name.endswith("weight") and ".ln" in f".{name}":
+                p.add_(1.0)
+            if name.endswith(("ls1", "ls2")):
+                p.add_(0.5)
+    return model.eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["vit_s8", "regvit"])
+def test_vit_chain_matches_the_block_loop_on_card(name):
+    """A ViT-S/8 batch (784 tokens, 12 blocks of 384) and a narrow UNI2-h
+    batch (dim 128, 24 gated blocks) in bf16 through the chain against the
+    block loop: their logits differ by less than the loop's own bf16 error
+    (its largest distance from the same weights in float32), and give the
+    same class wherever the loop's top two are farther apart than that; K8
+    launched 1 + 2·depth times a forward."""
+    _need_card()
+    from deephisto_tpu_torch.models import RegViT, ViT
+
+    dev = torch.device("cuda")
+    if name == "vit_s8":
+        cls, kw = ViT, dict(patch=8, dim=384, depth=12, heads=6, img_size=224)
+    else:
+        cls, kw = RegViT, dict(patch=14, dim=128, depth=24, heads=2, mlp_hidden=64,
+                               reg_tokens=8, img_size=224)
+    model = _seeded_vit(cls(5, **kw), 7).to(dev)
+    exact = cls(5, dtype=torch.float32, **kw).to(dev).eval()
+    exact.load_state_dict(model.state_dict())
+    x = torch.rand((16, 224, 224, 3), generator=torch.Generator().manual_seed(8)).to(dev)
+    with torch.inference_mode():
+        _build.reset_launches()
+        got = model(x)
+        torch.cuda.synchronize()
+        launches = _build.launches.get("layernorm", 0)
+        want = _loop_logits(model, x)
+        ref = exact(x)
+    assert launches == 1 + 2 * model.depth, launches
+    tol = float((want - ref).abs().max())
+    assert float((got - want).abs().max()) < tol
+    top2 = want.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    assert torch.equal(got.argmax(1)[clear], want.argmax(1)[clear])
